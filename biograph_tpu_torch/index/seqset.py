@@ -1,0 +1,298 @@
+"""The seqset: a BWT-like suffix-ordered read store, queried in batch (torch).
+
+Counterpart of ``biograph_tpu/index/seqset.py``.  Semantics:
+
+  * The *closure set* C = every suffix of every read and reverse complement.
+  * *Entries* = the prefix-maximal elements of C, sorted in prefix-first
+    lexicographic order (no entry is a prefix of another).
+  * ``prev[b][i] = 1`` iff i is the first entry whose prefix P satisfies
+    "b+P is an entry".  Rank/select over prev[b] is the LF mapping:
+      - push_front(range [s,e) of seq S, base b) =
+          fixed[b] + [rank_b(s), rank_b(e))
+      - pop_front(entry e starting with b) = select_b(e - fixed[b]), stored
+        directly as ``pop_sel``.
+  * ``entry_sizes[i]`` — length of entry i; ``shared[i]`` — LCP with entry
+    i-1.
+
+Everything queryable is a flat tensor on one device; all query methods are
+batched.  ``rank4``, ``rank4_tiled`` and ``sizes_at`` run on the CUDA kernels
+of ``ops/rank4.py`` when the tensors are on the card, whatever the batch size
+and whatever the seqset's size; the remaining primitives are plain tensor
+code.  ``rank4`` answers positions in the caller's order from the structure
+as stored; ``push4``, the bulk operation, goes through ``rank4_tiled`` and
+the tiled rank table that ``Seqset.d`` builds beside the structure.
+
+Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the 32-bit
+words bit-reinterpreted; ``save`` writes them as ``uint32`` so the artifact
+is byte-compatible with the JAX package's.
+
+Not ported yet (they need ``ops/ltsearch.py``): ``push_front_drop``,
+``pop_front_ranges``, ``truncate_ranges``, ``trunc_gather``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from functools import cached_property
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from biograph_tpu_torch import resolve_device
+from biograph_tpu_torch.core import container, dna
+from biograph_tpu_torch.ops import rank4 as rank4_ops
+
+
+class SeqsetRanges(NamedTuple):
+    """A batch of seqset ranges."""
+
+    begin: torch.Tensor  # int64 [B]
+    end: torch.Tensor  # int64 [B]
+    size: torch.Tensor  # int32 [B] — length of the represented sequence
+
+    @property
+    def valid(self):
+        return self.begin < self.end
+
+
+_TENSOR_FIELDS = (
+    "fixed", "prev_words", "prev_cum", "entry_sizes", "shared", "pop_sel"
+)
+
+
+@dataclass
+class Seqset:
+    n_entries: int
+    max_entry_len: int
+    fixed: torch.Tensor  # int64 [5]
+    prev_words: torch.Tensor  # int32 [4, nw] — bit i of prev[b], reinterpreted
+    prev_cum: torch.Tensor  # int64 [4, nw] — exclusive prefix popcounts
+    entry_sizes: torch.Tensor  # int32 [n]
+    shared: torch.Tensor  # int32 [n]
+    pop_sel: torch.Tensor  # int64 [n] — select table == pop_front cache
+    uuid: str = ""
+
+    @property
+    def device(self) -> torch.device:
+        return self.prev_words.device
+
+    def to(self, device="cuda") -> "Seqset":
+        """A seqset with every tensor on ``device``."""
+        dev = resolve_device(device)
+        kw = {f.name: getattr(self, f.name) for f in fields(self)}
+        for name in _TENSOR_FIELDS:
+            kw[name] = kw[name].to(dev)
+        return Seqset(**kw)
+
+    @cached_property
+    def d(self) -> "_SeqsetDevice":
+        """The batched query engine over this seqset's tensors, on the
+        device they lie on (entry points put them on CUDA by default)."""
+        return _SeqsetDevice(
+            fixed=self.fixed,
+            prev_words=self.prev_words.contiguous(),
+            prev_cum=self.prev_cum.contiguous(),
+            entry_sizes=self.entry_sizes.contiguous(),
+            shared=self.shared,
+            pop_sel=self.pop_sel,
+            n_entries=self.n_entries,
+            rank4_tiles=rank4_ops.build_rank4_tiles(
+                self.prev_words.contiguous(), self.prev_cum.contiguous()
+            ),
+        )
+
+    # ---------------- convenience (small queries) -------------
+
+    def find_str(self, seq: str):
+        """Find a single sequence; returns (begin, end, size) ints."""
+        codes = torch.from_numpy(dna.seq_to_codes(seq)[None, :].copy())
+        r = self.d.find(
+            codes.to(self.device),
+            torch.tensor([len(seq)], dtype=torch.int32, device=self.device),
+        )
+        return int(r.begin[0]), int(r.end[0]), int(r.size[0])
+
+    def entry_sequence(self, entry: int, length: int | None = None) -> str:
+        n = int(self.entry_sizes[entry]) if length is None else length
+        ids = torch.tensor([entry], dtype=torch.int64, device=self.device)
+        return dna.codes_to_seq(self.d.sequences(ids, n)[0, :n])
+
+    # ---------------- persistence ----------------
+
+    def save(self, path: str):
+        def host(t, dtype):
+            return t.cpu().numpy().astype(dtype, copy=False)
+
+        with container.ArtifactWriter(path, "seqset") as w:
+            w.set_scalar("n_entries", self.n_entries)
+            w.set_scalar("max_entry_len", self.max_entry_len)
+            w.add_array("fixed", host(self.fixed, np.int64))
+            w.add_array(
+                "prev_words", host(self.prev_words, np.int32).view(np.uint32)
+            )
+            w.add_array("prev_cum", host(self.prev_cum, np.int64))
+            w.add_array("entry_sizes", host(self.entry_sizes, np.int32))
+            w.add_array("shared", host(self.shared, np.int32))
+            w.add_array("pop_sel", host(self.pop_sel, np.int64))
+            self.uuid = w.meta["uuid"]
+
+    @staticmethod
+    def load(path: str, device="cuda") -> "Seqset":
+        dev = resolve_device(device)
+        r = container.ArtifactReader(path, "seqset", mmap=False)
+        from biograph_tpu_torch.convert import seqset_from_numpy
+
+        arrays = {name: r.array(name) for name in _TENSOR_FIELDS}
+        arrays["n_entries"] = r.scalar("n_entries")
+        arrays["max_entry_len"] = r.scalar("max_entry_len")
+        ss = seqset_from_numpy(arrays, dev)
+        ss.uuid = r.uuid
+        return ss
+
+
+@dataclass(frozen=True)
+class _SeqsetDevice:
+    """Batched query engine over the seqset's tensors."""
+
+    fixed: torch.Tensor
+    prev_words: torch.Tensor
+    prev_cum: torch.Tensor
+    entry_sizes: torch.Tensor
+    shared: torch.Tensor
+    pop_sel: torch.Tensor
+    n_entries: int
+    rank4_tiles: rank4_ops.Rank4Tiles
+
+    @property
+    def device(self) -> torch.device:
+        return self.prev_words.device
+
+    def _t(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # -- primitive ops (all batched) --
+
+    def rank(self, b, pos) -> torch.Tensor:
+        """rank of prev[base b] at positions pos; b and pos same shape."""
+        return rank4_ops.rank_plain(
+            self.prev_words, self.prev_cum, self._t(b), self._t(pos)
+        )
+
+    def entry_has_front(self, entry, b) -> torch.Tensor:
+        entry = self._t(entry, torch.int64)
+        nw = self.prev_words.shape[1]
+        flat = self._t(b, torch.int64) * nw + (entry >> 5)
+        word = dna.i32_to_u32(self.prev_words.reshape(-1)[flat])
+        return ((word >> (entry & 31)) & 1).to(torch.bool)
+
+    def entry_push_front(self, entry, b) -> torch.Tensor:
+        b = self._t(b, torch.int64)
+        return self.fixed[b] + self.rank(b, entry)
+
+    def entry_first_base(self, entry) -> torch.Tensor:
+        entry = self._t(entry)
+        ge = [(entry >= self.fixed[i]).to(torch.int32) for i in (1, 2, 3)]
+        return ge[0] + ge[1] + ge[2]
+
+    def entry_pop_front(self, entry) -> torch.Tensor:
+        """Batched pop via the select table (== pop_front cache)."""
+        return self.pop_sel[self._t(entry, torch.int64)]
+
+    def push_front(self, r: SeqsetRanges, b) -> SeqsetRanges:
+        """Batched push_front.  Lanes with invalid input ranges come back
+        as (begin, begin, size)."""
+        return SeqsetRanges(
+            *rank4_ops.push_front_plain(
+                self.prev_words, self.prev_cum, self.entry_sizes, self.fixed,
+                r.begin, r.end, r.size, self._t(b),
+            )
+        )
+
+    def sizes_at(self, entry) -> torch.Tensor:
+        """entry_sizes[min(entry, n-1)], exact, through the gather_sizes
+        kernel on the card."""
+        idx = self._t(entry, torch.int64).clamp(max=self.n_entries - 1)
+        return rank4_ops.gather_sizes(self.entry_sizes, idx.contiguous())
+
+    def rank4(self, pos) -> torch.Tensor:
+        """All-4-bases rank at each position: int32 [B, 4], through the
+        rank4 kernel on the card."""
+        pos = self._t(pos, torch.int64).contiguous()
+        return rank4_ops.rank4(self.prev_words, self.prev_cum, pos)
+
+    def rank4_tiled(self, pos) -> torch.Tensor:
+        """The same int32 [B, 4] as ``rank4``, through the rank4_tiled
+        kernel and the tiled rank table on the card: the queries are sorted
+        by tile first, which is what a bulk caller wants."""
+        pos = self._t(pos, torch.int64).contiguous()
+        return rank4_ops.rank4_tiled(self.rank4_tiles, pos)
+
+    def push4(self, r: SeqsetRanges):
+        """Children of each range for ALL four pushed bases at once.
+
+        Returns (begin4, end4) int64 [B, 4] indexed by the pushed base —
+        column b equals push_front(r, b).(begin, end).  One stacked
+        rank4_tiled over both range ends plus one sizes gather."""
+        B = r.begin.shape[0]
+        r4 = self.rank4_tiled(torch.cat([r.begin, r.end])).to(torch.int64)
+        nb = self.fixed[None, :4] + r4[:B]
+        ne = self.fixed[None, :4] + r4[B:]
+        new_size = (r.size + 1)[:, None]
+        kick = (nb < ne) & (self.sizes_at(nb) < new_size)
+        nb = nb + kick.to(nb.dtype)
+        was_valid = (r.begin < r.end)[:, None]
+        nb = torch.where(was_valid, nb, r.begin[:, None])
+        ne = torch.where(was_valid, ne, r.begin[:, None])
+        return nb, ne
+
+    def find(self, codes, lengths) -> SeqsetRanges:
+        """Batched backward search.
+
+        codes: [B, L] uint8 padded; lengths: [B].  Pushes bases from last to
+        first; short lanes start later so all lanes finish together."""
+        codes = self._t(codes)
+        B, L = codes.shape
+        lengths = self._t(lengths, torch.int32)
+        begin = torch.zeros(B, dtype=torch.int64, device=self.device)
+        end = torch.full((B,), self.n_entries, dtype=torch.int64, device=self.device)
+        size = torch.zeros(B, dtype=torch.int32, device=self.device)
+        for i in range(L):
+            pos = lengths - 1 - i
+            active = (pos >= 0) & (begin < end)
+            bidx = torch.gather(
+                codes, 1, pos.clamp(min=0).to(torch.int64)[:, None]
+            )[:, 0]
+            r2 = self.push_front(SeqsetRanges(begin, end, size), bidx)
+            begin = torch.where(active, r2.begin, begin)
+            end = torch.where(active, r2.end, end)
+            size = torch.where(active, r2.size, size)
+        return SeqsetRanges(begin=begin, end=end, size=size)
+
+    def find_existing(self, codes, lengths) -> torch.Tensor:
+        """Entry ids for sequences known to exist (undefined otherwise)."""
+        codes = self._t(codes)
+        B, L = codes.shape
+        lengths = self._t(lengths, torch.int32)
+        entry = torch.zeros(B, dtype=torch.int64, device=self.device)
+        for i in range(L):
+            pos = lengths - 1 - i
+            bidx = torch.gather(
+                codes, 1, pos.clamp(min=0).to(torch.int64)[:, None]
+            )[:, 0]
+            entry = torch.where(
+                pos >= 0, self.entry_push_front(entry, bidx), entry
+            )
+        return entry
+
+    def sequences(self, entries, max_len: int) -> torch.Tensor:
+        """The first max_len bases of each entry id via pop chains: uint8
+        [B, max_len]."""
+        cur = self._t(entries, torch.int64)
+        out = torch.zeros(
+            (cur.shape[0], max_len), dtype=torch.uint8, device=self.device
+        )
+        for i in range(max_len):
+            out[:, i] = self.entry_first_base(cur).to(torch.uint8)
+            cur = self.entry_pop_front(cur)
+        return out

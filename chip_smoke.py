@@ -1,0 +1,570 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile OUT.json]
+
+Builds the CUDA kernels of ``biograph_tpu_torch`` from the sources in this
+checkout, holds each against its plain PyTorch version on the card (exact
+equality: everything is integer), then drives the port's create-and-query
+path at a real size: 120 000 reads of 100 bases over a 2 Mb genome with
+4000 planted SNPs, half of them reverse-complemented, generated in-process
+from seed 12345.  The path is build_seqset -> build_readmap -> save/load ->
+find of all 240 000 oriented reads -> rank4 at the found ranges' ends ->
+push4 -> probe_exact (depth 32) over every position of the doubled fwd+rc
+genome text.  Last, the two rank kernels are timed side by side on a rank
+structure that outgrows the card's L2 cache.
+
+Any failure raises and the exit code is non-zero; there is no CPU fallback.
+Stage times are host-clock times read after ``torch.cuda.synchronize()``;
+kernel times are CUDA-event times over repeated launches.  The last line of
+standard output is ``{"ok": true, "device": {...}}``.  With ``--profile`` the
+main path runs twice more, warm and then with each stage under
+``torch.profiler``, and each stage's cold and warm time, the device's busy
+time and its heaviest kernels go to OUT.json.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from biograph_tpu_torch.build.readmap_build import build_readmap
+from biograph_tpu_torch.build.seqset_build import build_seqset
+from biograph_tpu_torch.index import probes
+from biograph_tpu_torch.index.readmap import Readmap
+from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
+from biograph_tpu_torch.ops import _build, rank4 as rank4_ops, rank_cum as rank_cum_ops
+
+SEED = 12345
+GENOME, READ_LEN, READS, SNPS = 2_000_000, 100, 120_000, 4000
+DEPTH = 32
+PROBE_CHUNK = 1 << 20
+# a rank structure past the 50 MB L2: 2^24 words a base, 805 MB as stored
+BIG_NW, BIG_QUERIES = 1 << 24, 1 << 22
+
+# NVIDIA H100 SXM data-sheet peaks: device memory rate, and the float32 rate
+# outside the tensor cores, taken as the rate of the 32-bit integer lanes.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+WRAPPERS = {
+    "rank4": rank4_ops.rank4,
+    "rank4_tiled": rank4_ops.rank4_tiled,
+    "gather_sizes": rank4_ops.gather_sizes,
+    "chain_window": rank4_ops.chain_window,
+    "rank_cum": rank_cum_ops.rank_cum,
+}
+REPLACES = {
+    "rank4": "biograph_tpu/ops/rank4.py:134",
+    "rank4_tiled": "biograph_tpu/ops/rank4.py:559",
+    "gather_sizes": "biograph_tpu/ops/rank4.py:202",
+    "chain_window": "biograph_tpu/ops/rank4.py:359",
+    "rank_cum": "biograph_tpu/ops/pallas_rank.py:89",
+}
+
+
+def say(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+PROFILE = None  # {stage: {...}} while a --profile run is on
+
+
+def timed(fn, stage=None):
+    """(result, seconds) of fn(), the device drained before and after.  In
+    a --profile run a named stage also runs under torch.profiler, which
+    gives the time the device was busy and its heaviest kernels."""
+    torch.cuda.synchronize()
+    if PROFILE is not None and stage is not None:
+        return _profiled(fn, stage)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _profiled(fn, stage):
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=device_us, reverse=True)
+    PROFILE[stage] = {
+        "device_busy_s": sum(device_us(e) for e in kernels) / 1e6,
+        "launches": sum(e.count for e in kernels),
+        "top": [[e.key[:80], e.count, device_us(e) / 1e3] for e in kernels[:8]],
+    }
+    return out, seconds
+
+
+def event_ms(fn, reps: int, warm: int = 2, stall=None) -> float:
+    """Mean CUDA-event time of one fn() over ``reps`` back-to-back calls.
+
+    With ``stall`` (a callable that queues some tens of milliseconds of
+    device work) the calls are enqueued while the device is still busy, so
+    the events bracket device time alone; without it the time includes
+    whatever the host needs to issue each call."""
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if stall is not None:
+        stall()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def make_stall(dev):
+    """A callable that queues some tens of milliseconds of device work."""
+    a = torch.randn(8192, 8192, device=dev)
+
+    def stall():
+        for _ in range(4):
+            torch.mm(a, a)
+
+    return stall
+
+
+def max_abs_err(got, want) -> int:
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    worst = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype differ: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        if g.numel():
+            worst = max(worst, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    return worst
+
+
+def require_equal(name, got, want):
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{name}: kernel and plain version differ (max abs {err})")
+    return err
+
+
+def make_workload(genome_len: int, n_reads: int, n_snps: int, read_len: int):
+    """(genome, codes [R, L], lengths [R]): reads of a SNP-carrying donor,
+    the first half reverse-complemented."""
+    rng = np.random.default_rng(SEED)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    donor = genome.copy()
+    snp = rng.choice(np.arange(200, genome_len - 200), n_snps, replace=False)
+    donor[snp] = (donor[snp] + 1 + rng.integers(0, 3, n_snps)) % 4
+    starts = rng.integers(0, genome_len - read_len, n_reads)
+    codes = donor[starts[:, None] + np.arange(read_len)]
+    half = n_reads // 2
+    codes[:half] = (3 - codes[:half])[:, ::-1]
+    return genome, codes.astype(np.uint8), np.full(n_reads, read_len, np.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def edge_checks(dev):
+    """Small and ragged shapes: B not a multiple of the block, pos == 0,
+    pos == n, pos == 32*nw, m == 0, m == depth, sizes that are not a
+    multiple of the scan block."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    for nw in (1, 7, 1000, 1023, 1024, 1025, 3000):
+        words64 = torch.randint(0, 1 << 32, (4, nw), generator=g)
+        words = torch.where(words64 >= 1 << 31, words64 - (1 << 32), words64).to(torch.int32).to(dev)
+        cum = torch.stack([rank_cum_ops.rank_cum_plain(words[b]) for b in range(4)]).to(torch.int64)
+        for b in range(4):
+            require_equal(
+                f"rank_cum nw={nw}", rank_cum_ops.rank_cum(words[b].contiguous()),
+                rank_cum_ops.rank_cum_plain(words[b]),
+            )
+        n = 32 * nw - 5
+        pos = torch.cat([
+            torch.randint(0, n + 1, (1003,), generator=g),
+            torch.tensor([0, 1, 31, 32, n - 1, n, 32 * nw - 1, 32 * nw]),
+        ]).to(dev)
+        want = rank4_ops.rank4_plain(words, cum, pos)
+        require_equal(f"rank4 nw={nw}", rank4_ops.rank4(words, cum, pos), want)
+        # rank4_tiled: a dense bucket (its tile staged in shared memory), a
+        # sparse one (read in place), one query, and every query in one tile
+        tiles = rank4_ops.build_rank4_tiles(words, cum)
+        require_equal(f"rank4_tiled table nw={nw}", rank4_ops.rank4_tiled_plain(tiles, pos), want)
+        for name, sel in (("dense", pos), ("sparse", pos[-40:].contiguous()), ("one", pos[-1:].contiguous()),
+                          ("one tile", (pos % min(n + 1, 32 * 1024)).contiguous())):
+            require_equal(f"rank4_tiled {name} nw={nw}", rank4_ops.rank4_tiled(tiles, sel),
+                          rank4_ops.rank4_plain(words, cum, sel))
+    sizes = torch.randint(1, 70000, (777,), generator=g).to(torch.int32).to(dev)
+    idx = torch.randint(0, 777, (5, 201), generator=g).to(dev)
+    require_equal("gather_sizes", rank4_ops.gather_sizes(sizes, idx), rank4_ops.gather_sizes_plain(sizes, idx))
+
+    _, codes, lengths = make_workload(6000, 900, 30, 40)
+    lengths = lengths.copy()
+    lengths[::7] = 25
+    ss = build_seqset(codes, lengths, device=dev)
+    rng = np.random.default_rng(SEED)
+    text = torch.from_numpy(rng.integers(0, 4, 6000, dtype=np.uint8)).to(dev)
+    text[:3000] = torch.from_numpy(codes[:75].reshape(-1)).to(dev)
+    for depth in (1, 17, 32):
+        pos = torch.arange(0, 6000, 3, device=dev)[:1999]
+        m = torch.randint(0, depth + 1, (pos.shape[0],), generator=g).to(torch.int32).to(dev)
+        m[:5] = 0
+        m[5:10] = depth
+        win = probes._window_bases(text, pos, depth)
+        d = ss.d
+        args = (d.prev_words, d.prev_cum, d.entry_sizes, d.fixed, win, m, depth)
+        require_equal(f"chain_window depth={depth}", rank4_ops.chain_window(*args), rank4_ops.chain_window_plain(*args))
+    got = rank4_ops.chain_fixed(d.prev_words, d.prev_cum, d.entry_sizes, d.fixed, text, 17)
+    want = probes.find_window(d, text, torch.arange(6000, device=dev), 17, 17)
+    keep = torch.arange(6000, device=dev) >= 16
+    require_equal("chain_fixed", tuple(x[keep] for x in got), tuple(x[keep] for x in want))
+    torch.cuda.synchronize()
+
+
+def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m):
+    """Each kernel at the main path's shapes: equality with the plain
+    version, times, and the least time the card could take.  ``ms``,
+    ``plain_ms`` and ``library_ms`` are device times (calls queued behind a
+    stall); ``call_ms`` is the kernel wrapper's time per call as a caller
+    issuing it in a loop sees it, host cost included."""
+    rows = []
+    stall = make_stall(d.device)
+
+    def row(name, kernel, plain, bytes_moved, operations, library=None, plain_reps=3):
+        got, want = kernel(), plain()
+        err = require_equal(name, got, want)
+        bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        ops_ms = operations / PEAK_OPS_PER_S * 1e3
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"biograph_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": event_ms(kernel, 20, stall=stall),
+            "call_ms": event_ms(kernel, 20),
+            "plain_ms": event_ms(plain, plain_reps, warm=1, stall=stall),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": event_ms(library, 20, stall=stall) if library else None,
+        })
+
+    nw = d.prev_words.shape[1]
+    n = d.n_entries
+    structure_bytes = 4 * nw * (4 + 8)
+
+    # rank4 as push4 calls it: both ends of every find range, stacked
+    pos = torch.cat([find_ranges.begin, find_ranges.end]).contiguous()
+    B = pos.shape[0]
+    row(
+        "rank4",
+        lambda: rank4_ops.rank4(d.prev_words, d.prev_cum, pos),
+        lambda: rank4_ops.rank4_plain(d.prev_words, d.prev_cum, pos),
+        B * 8 + B * 16 + min(B * 4 * 12, structure_bytes),
+        B * 24,
+    )
+
+    # rank4_tiled as push4 calls it: the same positions against the tiled
+    # table; the time is the whole call (the sort by tile, the cut into
+    # blocks and the kernel), prologue_ms the part before the kernel
+    tiles = d.rank4_tiles
+    table_bytes = tiles.words.numel() * 4 + tiles.rel.numel() * 2 + tiles.base.numel() * 8
+
+    def prologue():
+        tile = ((pos >> 5).clamp(0, tiles.words.shape[0] - 1) // rank4_ops.TILE_W).to(torch.int32)
+        return pos[rank4_ops.tile_buckets(tile, tiles.base.shape[0])[0]]
+
+    row(
+        "rank4_tiled",
+        lambda: rank4_ops.rank4_tiled(tiles, pos),
+        lambda: rank4_ops.rank4_tiled_plain(tiles, pos),
+        B * 8 + B * 16 + min(B * 24, table_bytes),
+        B * 28,
+    )
+    rows[-1]["prologue_ms"] = event_ms(prologue, 20, stall=stall)
+    require_equal("rank4_tiled vs rank4", rank4_ops.rank4_tiled(tiles, pos), rank4_ops.rank4(d.prev_words, d.prev_cum, pos))
+
+    # gather_sizes as push4 calls it: the [B/2, 4] pushed begins
+    nb4, _ = d.push4(find_ranges)
+    idx = nb4.clamp(max=n - 1).contiguous()
+    row(
+        "gather_sizes",
+        lambda: rank4_ops.gather_sizes(d.entry_sizes, idx),
+        lambda: rank4_ops.gather_sizes_plain(d.entry_sizes, idx),
+        idx.numel() * (8 + 4) + min(idx.numel() * 4, n * 4),
+        idx.numel() * 2,
+        library=lambda: torch.index_select(d.entry_sizes, 0, idx.reshape(-1)),
+        plain_reps=20,
+    )
+
+    # chain_window as one probe_exact round calls it
+    win = probes._window_bases(probe_text, probe_pos, DEPTH)
+    P = probe_pos.shape[0]
+    args = (d.prev_words, d.prev_cum, d.entry_sizes, d.fixed, win, probe_m, DEPTH)
+    _, e, s = rank4_ops.chain_window(*args)
+    # steps this run's data needs: every successful push plus the one failing
+    # push of a lane that died; about 48 integer operations a step
+    steps = int(s.sum()) + int((s < probe_m).sum())
+    row(
+        "chain_window",
+        lambda: rank4_ops.chain_window(*args),
+        lambda: rank4_ops.chain_window_plain(*args),
+        P * DEPTH + P * 4 + P * 20 + structure_bytes + min(steps * 4, n * 4) + 40,
+        steps * 48,
+        plain_reps=2,
+    )
+
+    # rank_cum as the build calls it: one base row
+    words = d.prev_words[0].contiguous()
+    row(
+        "rank_cum",
+        lambda: rank_cum_ops.rank_cum(words),
+        lambda: rank_cum_ops.rank_cum_plain(words),
+        nw * 8,
+        nw * 16,
+        plain_reps=20,
+    )
+    return rows
+
+
+def rank_past_l2(dev, stall):
+    """rank4 and rank4_tiled side by side on a random rank structure that
+    outgrows the L2 cache, at uniformly random positions: equality with the
+    plain version, and device time per call."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    words = torch.randint(-(1 << 31), 1 << 31, (4, BIG_NW), dtype=torch.int32, device=dev, generator=g)
+    cum = torch.stack([rank_cum_ops.rank_cum(words[b]) for b in range(4)]).to(torch.int64)
+    require_equal("rank_cum past L2", rank_cum_ops.rank_cum(words[3]), rank_cum_ops.rank_cum_plain(words[3]))
+    tiles = rank4_ops.build_rank4_tiles(words, cum)
+    pos = torch.randint(0, 32 * BIG_NW + 1, (BIG_QUERIES,), device=dev, generator=g)
+    want = rank4_ops.rank4_plain(words, cum, pos)
+    require_equal("rank4 past L2", rank4_ops.rank4(words, cum, pos), want)
+    require_equal("rank4_tiled past L2", rank4_ops.rank4_tiled(tiles, pos), want)
+    pos_sorted = pos.sort().values
+    return {
+        "words_per_base": BIG_NW,
+        "positions": BIG_QUERIES,
+        "structure_bytes": words.numel() * 4 + cum.numel() * 8,
+        "table_bytes": tiles.words.numel() * 4 + tiles.rel.numel() * 2 + tiles.base.numel() * 8,
+        "rank4_ms": event_ms(lambda: rank4_ops.rank4(words, cum, pos), 10, stall=stall),
+        "rank4_tiled_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos), 10, stall=stall),
+        "rank4_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4(words, cum, pos_sorted), 10, stall=stall),
+        "rank4_tiled_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos_sorted), 10, stall=stall),
+        "plain_ms": event_ms(lambda: rank4_ops.rank4_plain(words, cum, pos), 3, warm=1, stall=stall),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the main path
+# ---------------------------------------------------------------------------
+
+
+def main_path(dev, genome, codes, lengths, depth=DEPTH):
+    """reads -> seqset -> readmap -> save/load -> find -> push4 ->
+    probe_exact.  Returns (stage stats, what the later checks need)."""
+    R = codes.shape[0]
+    stats = {}
+    ss, stats["build_s"] = timed(lambda: build_seqset(codes, lengths, device=dev), "build")
+    rm, stats["readmap_s"] = timed(lambda: build_readmap(ss, codes, lengths, device=dev), "readmap")
+
+    def save_load():
+        with tempfile.TemporaryDirectory() as tmp:
+            ss.save(tmp + "/seqset.bgt")
+            rm.save(tmp + "/readmap.bgt")
+            ss2 = Seqset.load(tmp + "/seqset.bgt", device=dev)
+            return ss2, Readmap.load(tmp + "/readmap.bgt", ss2, device=dev)
+
+    (ss2, rm2), stats["save_load_s"] = timed(save_load)
+    for name in ("fixed", "prev_words", "prev_cum", "entry_sizes", "shared", "pop_sel"):
+        if not torch.equal(getattr(ss, name), getattr(ss2, name)):
+            raise AssertionError(f"seqset field {name} changed across save/load")
+    del ss, rm
+    d = ss2.d
+
+    codes_dev = torch.from_numpy(codes).to(dev)
+    lens_dev = torch.from_numpy(lengths).to(dev)
+    from biograph_tpu_torch.core.dna import revcomp_codes
+
+    oriented = torch.cat([codes_dev, revcomp_codes(codes_dev, lens_dev)])
+    olens = torch.cat([lens_dev, lens_dev])
+    found, stats["find_s"] = timed(lambda: d.find(oriented, olens), "find")
+    if not bool(found.valid.all()):
+        raise AssertionError(f"{int((~found.valid).sum())} of {2 * R} oriented reads not found")
+    if not bool((found.size == olens).all()):
+        raise AssertionError("find: a range's size differs from its read's length")
+    # each read's range contains the seqset entry its readmap entry hangs on
+    oriented_id = rm2.read_ids + (~rm2.is_forward).to(torch.int64) * R
+    entry_of = torch.empty(2 * R, dtype=torch.int64, device=dev)
+    entry_of[oriented_id] = rm2.entry_of_rm
+    if not bool(((found.begin <= entry_of) & (entry_of < found.end)).all()):
+        raise AssertionError("a read's find range does not contain its readmap entry")
+
+    ranked, stats["rank4_s"] = timed(lambda: d.rank4(torch.cat([found.begin, found.end])), "rank4")
+    (nb4, ne4), stats["push4_s"] = timed(lambda: d.push4(found), "push4")
+
+    text = torch.from_numpy(np.concatenate([genome, (3 - genome)[::-1]])).to(dev)
+    G = genome.shape[0]
+
+    def probe_all():
+        outs = []
+        for p0 in range(0, 2 * G, PROBE_CHUNK):
+            pos = torch.arange(p0, min(p0 + PROBE_CHUNK, 2 * G), device=dev)
+            seg_lo = torch.where(pos >= G, G, 0)
+            outs.append(probes.probe_exact_kernel(d, text, pos, seg_lo, depth))
+        return tuple(torch.cat(x) for x in zip(*outs))
+
+    probed, stats["probe_exact_s"] = timed(probe_all, "probe_exact")
+    stats["probe_positions"] = 2 * G
+    stats["n_entries"] = ss2.n_entries
+    stats["reads"] = R
+    stats["genome"] = G
+    return stats, (ss2, rm2, found, ranked, (nb4, ne4), text, probed)
+
+
+def check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, depth=DEPTH, sample=4096, host_sample=128):
+    """Sampled lanes recomputed with the plain versions on the card, and an
+    independent numpy/bytes check on the host."""
+    d = ss.d
+    G = genome.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    if int(d.fixed[4]) != ss.n_entries:
+        raise AssertionError("fixed[4] != n_entries")
+    if int(ss.entry_sizes.max()) != codes.shape[1] or ss.max_entry_len != codes.shape[1]:
+        raise AssertionError("longest entry is not a whole read")
+
+    # push4 column b == push_front(r, b)
+    pick = torch.randint(0, found.begin.shape[0], (sample,), generator=g).to(dev)
+    r = SeqsetRanges(found.begin[pick], found.end[pick], found.size[pick])
+    B = found.begin.shape[0]
+    for b in range(4):
+        base = torch.full((sample,), b, device=dev)
+        # rank4 column b == rank(b, .) at both ends of the range
+        if not (torch.equal(ranked[pick, b].to(torch.int64), d.rank(base, r.begin))
+                and torch.equal(ranked[B + pick, b].to(torch.int64), d.rank(base, r.end))):
+            raise AssertionError(f"rank4 column {b} differs from rank")
+        want = d.push_front(r, base)
+        if not (torch.equal(pushed[0][pick, b], want.begin) and torch.equal(pushed[1][pick, b], want.end)):
+            raise AssertionError(f"push4 column {b} differs from push_front")
+
+    # probe_exact through the kernel == the plain push_front loop
+    pos = torch.randint(0, 2 * G, (sample,), generator=g).to(dev)
+    seg_lo = torch.where(pos >= G, G, 0)
+    want = probes.probe_exact(d, text, pos, seg_lo, depth)
+    for got_x, want_x in zip(probed, want):
+        if not torch.equal(got_x[pos], want_x):
+            raise AssertionError("probe_exact: kernel path differs from the plain path")
+
+    # host: a window reported present is a substring of some read or its
+    # reverse complement, and one base longer (still inside the search
+    # bracket, whose upper end is exclusive) is not
+    both = np.concatenate([codes, (3 - codes)[:, ::-1]])
+    sep = np.full((both.shape[0], 1), 255, np.uint8)
+    haystack = np.concatenate([both, sep], axis=1).tobytes()
+    text_h = text.cpu().numpy()
+    pos_h = pos[:host_sample].cpu().numpy()
+    size_h = probed[2][pos[:host_sample]].cpu().numpy()
+    valid_h = (probed[0] < probed[1])[pos[:host_sample]].cpu().numpy()
+    for p, s, ok in zip(pos_h, size_h, valid_h):
+        lo = G if p >= G else 0
+        if s > 0 and not ok:
+            raise AssertionError("probe_exact: nonempty window with an empty range")
+        if s > 0 and haystack.find(text_h[p - s + 1 : p + 1].tobytes()) < 0:
+            raise AssertionError(f"window of {s} bases ending at {p} reported present but is in no read")
+        if s + 1 < min(depth, p - lo + 1) and haystack.find(text_h[p - s : p + 1].tobytes()) >= 0:
+            raise AssertionError(f"window ending at {p}: {s + 1} bases exist but {s} was reported longest")
+    return {"sampled_lanes": sample, "host_checked_windows": int(len(pos_h))}
+
+
+def main():
+    global PROFILE
+    profile_to = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile":
+        profile_to = sys.argv[2]
+    elif len(sys.argv) != 1:
+        sys.exit("usage: python3 chip_smoke.py [--profile OUT.json]")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this script runs only on a GPU")
+    t_start = time.perf_counter()
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    say(torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    for name in _build.KERNELS:
+        _build.load(name)
+    say(phase="build_kernels", built=built, seconds=time.perf_counter() - t0)
+
+    _, seconds = timed(lambda: edge_checks(dev))
+    say(phase="edge_checks", ok=True, seconds=seconds)
+
+    genome, codes, lengths = make_workload(GENOME, READS, SNPS, READ_LEN)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stats, (ss, rm, found, ranked, pushed, text, probed) = main_path(dev, genome, codes, lengths)
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"the main path launched no {missing} kernel")
+    if ss.n_entries < 1_000_000:
+        raise AssertionError(f"n_entries {ss.n_entries} is below the real-size floor of 1M")
+    say(phase="main_path", card=card, **stats)
+
+    checks, seconds = timed(lambda: check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed))
+    say(phase="checks", ok=True, seconds=seconds, **checks)
+
+    probe_pos = torch.arange(PROBE_CHUNK, device=dev)
+    probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
+    rows = kernel_table(ss.d, launches, found, text, probe_pos, probe_m)
+    past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev)))
+    say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
+    if profile_to is not None:
+        # the main path twice more: once as it is, with the allocator and
+        # the kernels warm, and once with each stage under torch.profiler:
+        # [kernel name, calls, device ms] for the heaviest kernels, and the
+        # share of the warm stage time in which the device sat idle
+        del ss, rm, found, ranked, pushed, text, probed
+        warm, _ = main_path(dev, genome, codes, lengths)
+        PROFILE = {}
+        main_path(dev, genome, codes, lengths)
+        for stage, seen in PROFILE.items():
+            seen["cold_s"] = stats[stage + "_s"]
+            seen["warm_s"] = warm[stage + "_s"]
+            seen["device_idle_share"] = max(0.0, 1 - seen["device_busy_s"] / seen["warm_s"])
+        with open(profile_to, "w") as f:
+            json.dump({"card": card, "stages": PROFILE}, f, indent=1)
+        say(phase="profile", written=profile_to, card=card,
+            stages={k: {x: v[x] for x in ("cold_s", "warm_s", "device_busy_s", "device_idle_share", "launches")} for k, v in PROFILE.items()})
+        PROFILE = None
+    say(total_s=time.perf_counter() - t_start)
+    print(card, flush=True)
+    say(kernels=rows)
+    say(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1})
+
+
+if __name__ == "__main__":
+    main()

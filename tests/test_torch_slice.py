@@ -1,0 +1,197 @@
+"""The first slice of the PyTorch port as a whole, against the JAX package:
+FASTQ file -> reads -> build_seqset -> build_readmap -> save -> load ->
+queries; artifacts saved by one package load in the other; and the port
+imports neither jax nor biograph_tpu.  Tolerance: exact equality."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from biograph_tpu.build.readmap_build import build_readmap as jax_build_readmap
+from biograph_tpu.build.seqset_build import build_seqset as jax_build_seqset
+from biograph_tpu.index import probes as jprobes
+from biograph_tpu.index.readmap import Readmap as JReadmap
+from biograph_tpu.index.seqset import Seqset as JSeqset
+from biograph_tpu.io.fastq import read_fastq as jax_read_fastq
+from biograph_tpu_torch.build.readmap_build import build_readmap
+from biograph_tpu_torch.build.seqset_build import build_seqset
+from biograph_tpu_torch.convert import READMAP_DTYPES, SEQSET_DTYPES, seqset_to_numpy
+from biograph_tpu_torch.core.dna import revcomp_codes
+from biograph_tpu_torch.index import probes as tprobes
+from biograph_tpu_torch.index.readmap import Readmap
+from biograph_tpu_torch.index.seqset import Seqset
+from biograph_tpu_torch.io.fastq import read_fastq
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+G, R, DEPTH = 1000, 220, 20
+
+
+@pytest.fixture(scope="module")
+def slice_run(tmp_path_factory):
+    """Both packages run the slice on the same FASTQ file and save."""
+    tmp = tmp_path_factory.mktemp("slice")
+    rng = np.random.default_rng(21)
+    genome = rng.integers(0, 4, G).astype(np.uint8)
+    with open(tmp / "reads.fq", "w") as f:
+        for i in range(R):
+            n = int(rng.integers(30, 61))
+            s = int(rng.integers(0, G - n))
+            seq = genome[s : s + n]
+            if i % 2:
+                seq = (3 - seq)[::-1]
+            f.write(f"@r{i}\n{''.join('ACGT'[c] for c in seq)}\n+\n{'I' * n}\n")
+    fq = str(tmp / "reads.fq")
+    jb, tb = jax_read_fastq(fq, use_native=False), read_fastq(fq)
+    np.testing.assert_array_equal(tb.codes, jb.codes)
+    np.testing.assert_array_equal(tb.lengths, jb.lengths)
+    mate_of = np.arange(R, dtype=np.int64) ^ 1
+
+    js = jax_build_seqset(jb.codes, jb.lengths)
+    jr = jax_build_readmap(js, jb.codes, jb.lengths, mate_of)
+    js.save(str(tmp / "jax_seqset.bgt"))
+    jr.save(str(tmp / "jax_readmap.bgt"))
+
+    ts = build_seqset(tb.codes, tb.lengths, device="cpu")
+    tr = build_readmap(ts, tb.codes, tb.lengths, mate_of, device="cpu")
+    ts.save(str(tmp / "torch_seqset.bgt"))
+    tr.save(str(tmp / "torch_readmap.bgt"))
+    return dict(tmp=tmp, genome=genome, batch=tb, js=js, jr=jr, ts=ts, tr=tr)
+
+
+def test_cross_load_seqset_and_readmap(slice_run):
+    tmp = slice_run["tmp"]
+    # saved by the port, loaded by the JAX package
+    js2 = JSeqset.load(str(tmp / "torch_seqset.bgt"))
+    jr2 = JReadmap.load(str(tmp / "torch_readmap.bgt"), js2)
+    # saved by the JAX package, loaded by the port
+    ts2 = Seqset.load(str(tmp / "jax_seqset.bgt"), device="cpu")
+    tr2 = Readmap.load(str(tmp / "jax_readmap.bgt"), ts2, device="cpu")
+    got = seqset_to_numpy(ts2)
+    for name, dtype in SEQSET_DTYPES.items():
+        want = np.asarray(getattr(slice_run["js"], name))
+        loaded = np.asarray(getattr(js2, name))
+        assert loaded.dtype == want.dtype == got[name].dtype == dtype, name
+        np.testing.assert_array_equal(loaded, want, err_msg=name)
+        np.testing.assert_array_equal(got[name], want, err_msg=name)
+    assert (js2.n_entries, js2.max_entry_len) == (ts2.n_entries, ts2.max_entry_len)
+    assert (js2.n_entries, js2.max_entry_len) == (slice_run["js"].n_entries, slice_run["js"].max_entry_len)
+    for name, dtype in READMAP_DTYPES.items():
+        want = np.asarray(getattr(slice_run["jr"], name))
+        assert np.asarray(getattr(jr2, name)).dtype == dtype, name
+        np.testing.assert_array_equal(np.asarray(getattr(jr2, name)), want, err_msg=name)
+        np.testing.assert_array_equal(getattr(tr2, name).numpy(), want, err_msg=name)
+    assert ts2.uuid == slice_run["js"].uuid and js2.uuid == slice_run["ts"].uuid
+    assert tr2.uuid == slice_run["jr"].uuid
+
+
+def test_slice_queries_after_load(slice_run):
+    """The port's loaded store answers as the JAX package's loaded store."""
+    tmp, batch, genome = slice_run["tmp"], slice_run["batch"], slice_run["genome"]
+    ts = Seqset.load(str(tmp / "torch_seqset.bgt"), device="cpu")
+    tr = Readmap.load(str(tmp / "torch_readmap.bgt"), ts, device="cpu")
+    js = JSeqset.load(str(tmp / "jax_seqset.bgt"))
+    codes, lengths = torch.from_numpy(batch.codes), torch.from_numpy(batch.lengths)
+    oriented = torch.cat([codes, revcomp_codes(codes, lengths)])
+    olens = torch.cat([lengths, lengths])
+    found = ts.d.find(oriented, olens)
+    assert bool(found.valid.all())  # every read and reverse complement is found
+    assert torch.equal(found.size, olens)
+    want = js.d.find(jnp.asarray(oriented.numpy()), jnp.asarray(olens.numpy()))
+    for g, w in zip(found, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # each read's range contains the entry its readmap entry hangs on
+    oriented_id = tr.read_ids + (~tr.is_forward).to(torch.int64) * R
+    entry_of = torch.empty(2 * R, dtype=torch.int64)
+    entry_of[oriented_id] = tr.entry_of_rm
+    assert bool(((found.begin <= entry_of) & (entry_of < found.end)).all())
+    nb, ne = ts.d.push4(found)
+    jnb, jne = js.d.push4(want)
+    np.testing.assert_array_equal(nb.numpy(), np.asarray(jnb))
+    np.testing.assert_array_equal(ne.numpy(), np.asarray(jne))
+    text = np.concatenate([genome, (3 - genome)[::-1]]).astype(np.uint8)
+    pos = np.arange(len(text), dtype=np.int64)
+    seg_lo = np.where(pos >= G, G, 0)
+    got = tprobes.probe_exact_kernel(ts.d, torch.from_numpy(text), torch.from_numpy(pos), torch.from_numpy(seg_lo), DEPTH)
+    ref = jprobes.probe_exact(js.d, jnp.asarray(text), jnp.asarray(pos), jnp.asarray(seg_lo), DEPTH)
+    for g, w in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_to_device_and_engine(slice_run):
+    ts = slice_run["ts"]
+    moved = ts.to("cpu")
+    assert moved is not ts and moved.device.type == "cpu" and moved.uuid == ts.uuid
+    for name in SEQSET_DTYPES:
+        assert torch.equal(getattr(moved, name), getattr(ts, name))
+    assert ts.d is ts.d and ts.d.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Seqset.load(str(slice_run["tmp"] / "torch_seqset.bgt"))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Readmap.load(str(slice_run["tmp"] / "torch_readmap.bgt"), ts)
+
+
+def _port_modules():
+    root = os.path.join(REPO, "biograph_tpu_torch")
+    mods = []
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, name), REPO)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = _port_modules()
+    for required in ("biograph_tpu_torch.build.seqset_build", "biograph_tpu_torch.ops.rank4", "biograph_tpu_torch.index.probes"):
+        assert required in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'biograph_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("clean")
+
+
+def test_chip_smoke_names_neither_and_needs_the_card():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    for line in src.splitlines():
+        stripped = line.strip()
+        if stripped.startswith(("import ", "from ")):
+            assert "jax" not in stripped, stripped
+            assert "biograph_tpu." not in stripped and not stripped.endswith("biograph_tpu"), stripped
+    assert "import jax" not in src and "from biograph_tpu " not in src and "from biograph_tpu." not in src
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run in full")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
+    """The phases chip_smoke.py drives on the card, rehearsed on CPU tensors
+    (where the wrappers take the plain versions)."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    import chip_smoke
+
+    dev = torch.device("cpu")
+    genome, codes, lengths = chip_smoke.make_workload(8000, 600, 16, 100)
+    stats, (ss, rm, found, ranked, pushed, text, probed) = chip_smoke.main_path(dev, genome, codes, lengths, depth=16)
+    assert stats["n_entries"] == ss.n_entries > 8000 and stats["probe_positions"] == 16000
+    out = chip_smoke.check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, depth=16, sample=200, host_sample=60)
+    assert out == {"sampled_lanes": 200, "host_checked_windows": 60}
