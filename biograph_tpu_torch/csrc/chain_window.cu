@@ -11,75 +11,142 @@
 //   started && !valid -> end = begin
 //   otherwise unchanged
 //
-// One thread per lane, the whole chain in registers, depth a runtime loop
-// bound.  Each step is a dependent chain of random reads (two ranks, one
-// size), so the kernel is bound by memory latency and the bytes gathered;
-// the structure is small enough to be served from L2 after first touch.
+// What bounds it: 32-byte sectors requested through L1/L2, not device-memory
+// bytes and not arithmetic.  The rank structure and the entry sizes of a
+// seqset sit in L2, every lane's chain is a string of dependent random reads,
+// and enough lanes are resident to hide their latency, so the time follows
+// the number of sectors a step asks for.  Against the structure as stored a
+// step asks for five (a word and a count for each range end, and a size).
+//
+// What the design does about it: the kernel reads the rank structure only
+// through the rank-block table (ops/rank4.py, build_rank_blocks).  A block
+// is one aligned 32-byte sector: an int64 count of the set bits before the
+// block, then six 32-bit words (192 entries); base b's blocks lie together.
+// rank_b(p) needs block p / 192 and nothing else, so a step asks for one
+// sector for `begin`, one for `end` and none when both fall in one block
+// (after a dozen pushes the range is narrow and they nearly always do), and
+// one for the size: two or three instead of five.  Words past the structure
+// are zero and the blocks there carry the totals, so p == 32*nw needs no
+// special case; a word index past the table is clamped to its last word.
+//
+// One thread per lane, the whole chain in registers, depth a run-time bound.
+// The window row is fetched 16 bytes at a time (one load per 16 steps) when
+// rows start on 16-byte boundaries, and byte by byte otherwise.  A lane whose
+// range has become empty leaves the loop.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-__device__ __forceinline__ long long rank_b(const uint32_t* __restrict__ words,
-                                            const long long* __restrict__ cum,
-                                            long long nw, int b, long long p) {
-    if (p < 0) p = 0;  // never read before the structure
-    long long w = p >> 5;
-    uint32_t mask = (1u << (uint32_t)(p & 31)) - 1u;
-    if (w >= nw) {
-        w = nw - 1;
-        mask = 0xFFFFFFFFu;
-    }
-    long long at = (long long)b * nw + w;
-    return cum[at] + __popc(words[at] & mask);
+constexpr int BLOCK_WORDS = 6;  // 32-bit words in a rank block
+constexpr int THREADS = 128;
+
+// Set bits below bit r (0 <= r < 192) of the block (a, c), plus its count.
+// a = {count, words 0-1}, c = {words 2-3, words 4-5}, little-endian pairs.
+__device__ __forceinline__ long long rank_in_block(ulonglong2 a, ulonglong2 c,
+                                                   uint32_t r) {
+    const unsigned long long all = ~0ull;
+    unsigned long long m0 = r >= 64 ? all : (1ull << r) - 1ull;
+    unsigned long long m1 =
+        r >= 128 ? all : (r > 64 ? (1ull << (r - 64)) - 1ull : 0ull);
+    unsigned long long m2 = r > 128 ? (1ull << (r - 128)) - 1ull : 0ull;
+    return (long long)a.x + __popcll(a.y & m0) + __popcll(c.x & m1) +
+           __popcll(c.y & m2);
 }
 
-__global__ void chain_window_kernel(
-    const uint32_t* __restrict__ words, const long long* __restrict__ cum,
-    const int* __restrict__ sizes, const long long* __restrict__ fixed,
-    const uint8_t* __restrict__ win, const int* __restrict__ m,
-    long long* __restrict__ out_begin, long long* __restrict__ out_end,
-    int* __restrict__ out_size, long long nw, long long n, long long P,
-    int depth) {
-    long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+template <bool VEC16>
+__global__ void __launch_bounds__(THREADS)
+chain_window_kernel(const ulonglong2* __restrict__ blocks,
+                    const int* __restrict__ sizes,
+                    const long long* __restrict__ fixed,
+                    const uint8_t* __restrict__ win, const int* __restrict__ m,
+                    long long* __restrict__ out_begin,
+                    long long* __restrict__ out_end, int* __restrict__ out_size,
+                    long long nblk, long long n, long long P, int depth) {
+    __shared__ long long s_fixed[4];
+    if (threadIdx.x < 4) s_fixed[threadIdx.x] = fixed[threadIdx.x];
+    __syncthreads();
+    const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (q >= P) return;
     const uint8_t* row = win + q * depth;
     int first_step = depth - m[q];
+    if (first_step < 0) first_step = 0;
+    const long long last_word = nblk * BLOCK_WORDS - 1;
     long long begin = 0, end = n;
     int size = 0;
-    for (int s = first_step < 0 ? 0 : first_step; s < depth; ++s) {
-        if (begin >= end) {
-            end = begin;
-            continue;
+    bool alive = true;
+
+    for (int s0 = first_step & ~15; alive && s0 < depth; s0 += 16) {
+        uint32_t chunk[4] = {0u, 0u, 0u, 0u};  // 16 window bases, one a byte
+        if (VEC16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(row + s0);
+            chunk[0] = v.x; chunk[1] = v.y; chunk[2] = v.z; chunk[3] = v.w;
+        } else {
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+                if (s0 + i < depth)
+                    chunk[i >> 2] |= (uint32_t)row[s0 + i] << (8 * (i & 3));
         }
-        int b = row[s] & 3;
-        long long fb = fixed[b];
-        long long nb = fb + rank_b(words, cum, nw, b, begin);
-        long long ne = fb + rank_b(words, cum, nw, b, end);
-        long long first = nb < 0 ? 0 : (nb > n - 1 ? n - 1 : nb);
-        if (nb < ne && sizes[first] < size + 1) nb += 1;
-        begin = nb;
-        end = ne;
-        size += 1;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            const int s = s0 + i;
+            if (s < first_step || s >= depth) continue;
+            if (begin >= end) {
+                end = begin;
+                alive = false;
+                break;
+            }
+            const int b = (chunk[i >> 2] >> (8 * (i & 3))) & 3;
+            long long pb = begin < 0 ? 0 : begin;  // never read before the table
+            long long pe = end < 0 ? 0 : end;
+            long long wb = pb >> 5, we = pe >> 5;
+            if (wb > last_word) wb = last_word;  // past the table: the totals
+            if (we > last_word) we = last_word;
+            const uint32_t kb = (uint32_t)wb / BLOCK_WORDS;
+            const uint32_t ke = (uint32_t)we / BLOCK_WORDS;
+            const ulonglong2* base_b = blocks + 2 * ((long long)b * nblk);
+            const ulonglong2 ab = base_b[2 * (long long)kb];
+            const ulonglong2 cb = base_b[2 * (long long)kb + 1];
+            ulonglong2 ae = ab, ce = cb;
+            if (ke != kb) {  // otherwise both ends share the sector just read
+                ae = base_b[2 * (long long)ke];
+                ce = base_b[2 * (long long)ke + 1];
+            }
+            const uint32_t rb =
+                ((uint32_t)wb - kb * BLOCK_WORDS) * 32u + (uint32_t)(pb & 31);
+            const uint32_t re =
+                ((uint32_t)we - ke * BLOCK_WORDS) * 32u + (uint32_t)(pe & 31);
+            const long long fb = s_fixed[b];
+            long long nb = fb + rank_in_block(ab, cb, rb);
+            const long long ne = fb + rank_in_block(ae, ce, re);
+            const long long first = nb < 0 ? 0 : (nb > n - 1 ? n - 1 : nb);
+            if (nb < ne && sizes[first] < size + 1) nb += 1;
+            begin = nb;
+            end = ne;
+            size += 1;
+        }
     }
     out_begin[q] = begin;
     out_end[q] = end;
     out_size[q] = size;
 }
 
-extern "C" int bgt_chain_window(const void* words, const void* cum,
-                                const void* sizes, const void* fixed,
-                                const void* win, const void* m,
-                                void* out_begin, void* out_end, void* out_size,
-                                long long nw, long long n, long long P,
-                                int depth, void* stream) {
+extern "C" int bgt_chain_window_block_words() { return BLOCK_WORDS; }
+
+extern "C" int bgt_chain_window(const void* blocks, const void* sizes,
+                                const void* fixed, const void* win,
+                                const void* m, void* out_begin, void* out_end,
+                                void* out_size, long long nblk, long long n,
+                                long long P, int depth, void* stream) {
     if (P > 0) {
-        const int threads = 128;
-        long long blocks = (P + threads - 1) / threads;
-        chain_window_kernel<<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-            (const uint32_t*)words, (const long long*)cum, (const int*)sizes,
+        const long long grid = (P + THREADS - 1) / THREADS;
+        const bool vec16 =
+            depth % 16 == 0 && reinterpret_cast<uintptr_t>(win) % 16 == 0;
+        auto kernel =
+            vec16 ? chain_window_kernel<true> : chain_window_kernel<false>;
+        kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
+            (const ulonglong2*)blocks, (const int*)sizes,
             (const long long*)fixed, (const uint8_t*)win, (const int*)m,
-            (long long*)out_begin, (long long*)out_end, (int*)out_size, nw, n,
-            P, depth);
+            (long long*)out_begin, (long long*)out_end, (int*)out_size, nblk,
+            n, P, depth);
     }
     return (int)cudaGetLastError();
 }

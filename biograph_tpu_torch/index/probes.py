@@ -72,7 +72,7 @@ def find_window(d, text, pos, m, depth: int):
 
 def _chain(d, win, m, depth: int):
     return chain_window(
-        d.prev_words, d.prev_cum, d.entry_sizes, d.fixed, win,
+        d.rank_blocks, d.entry_sizes, d.fixed, win,
         m.to(torch.int32).contiguous(), depth,
     )
 

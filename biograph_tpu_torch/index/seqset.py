@@ -20,7 +20,9 @@ of ``ops/rank4.py`` when the tensors are on the card, whatever the batch size
 and whatever the seqset's size; the remaining primitives are plain tensor
 code.  ``rank4`` answers positions in the caller's order from the structure
 as stored; ``push4``, the bulk operation, goes through ``rank4_tiled`` and
-the tiled rank table that ``Seqset.d`` builds beside the structure.
+the tiled rank table; the find-window chains of ``index/probes.py`` read the
+rank-block table (one 32-byte sector a rank).  ``Seqset.d`` builds both
+tables once, on the device, beside the structure; neither is saved.
 
 Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the 32-bit
 words bit-reinterpreted; ``save`` writes them as ``uint32`` so the artifact
@@ -89,17 +91,18 @@ class Seqset:
     def d(self) -> "_SeqsetDevice":
         """The batched query engine over this seqset's tensors, on the
         device they lie on (entry points put them on CUDA by default)."""
+        prev_words = self.prev_words.contiguous()
+        prev_cum = self.prev_cum.contiguous()
         return _SeqsetDevice(
             fixed=self.fixed,
-            prev_words=self.prev_words.contiguous(),
-            prev_cum=self.prev_cum.contiguous(),
+            prev_words=prev_words,
+            prev_cum=prev_cum,
             entry_sizes=self.entry_sizes.contiguous(),
             shared=self.shared,
             pop_sel=self.pop_sel,
             n_entries=self.n_entries,
-            rank4_tiles=rank4_ops.build_rank4_tiles(
-                self.prev_words.contiguous(), self.prev_cum.contiguous()
-            ),
+            rank4_tiles=rank4_ops.build_rank4_tiles(prev_words, prev_cum),
+            rank_blocks=rank4_ops.build_rank_blocks(prev_words, prev_cum),
         )
 
     # ---------------- convenience (small queries) -------------
@@ -162,7 +165,8 @@ class _SeqsetDevice:
     shared: torch.Tensor
     pop_sel: torch.Tensor
     n_entries: int
-    rank4_tiles: rank4_ops.Rank4Tiles
+    rank4_tiles: rank4_ops.Rank4Tiles  # what rank4_tiled (push4) reads
+    rank_blocks: torch.Tensor  # int32 [4, nblk, 8]: what chain_window reads
 
     @property
     def device(self) -> torch.device:

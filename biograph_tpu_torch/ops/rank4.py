@@ -18,11 +18,16 @@ table and no cap:
 
     rank_b(pos) = cum[b, pos>>5] + popcount(words[b, pos>>5] & low(pos&31))
 
-All three are bound by bytes gathered at random (a 32-byte sector per
-4- or 8-byte value), not by arithmetic.  The design is one thread per query
-or lane with every load independent (rank4, gather_sizes) or the whole
+All are bound by bytes gathered at random (a 32-byte sector per 4- or
+8-byte value), not by arithmetic.  The design is one thread per query or
+lane with every load independent (rank4, gather_sizes) or the whole
 dependent chain kept in registers (chain_window); the rank structure of a
 seqset is a few MB and is served from L2 after first touch.
+
+``chain_window`` reads the rank structure through a third form, the
+rank-block table (``build_rank_blocks``): per base, 32-byte blocks of one
+int64 count and six words, so that one rank costs one aligned sector
+instead of two, and none when both ends of a range fall in one block.
 
 ``rank4`` and ``rank4_tiled`` compute the same [B, 4] ranks and differ in
 what they read.  ``rank4`` gathers from the structure as stored, eight
@@ -30,8 +35,9 @@ sectors a query, in the caller's order: the form for positions in any order
 and any number.  ``rank4_tiled`` is the bulk form under ``push4``: its table
 (``Rank4Tiles``) keeps a word column's four words and four tile-relative
 counts side by side (24 bytes, two sectors, half the stored structure's
-bytes), and its queries are sorted by tile so that a block reads its tile
-once, coalesced, into shared memory.  Neither has a size gate.
+bytes), and its queries are bucketed by tile (a histogram, a scan and a
+scatter, kernels of the same call) so that a block reads its tile once,
+coalesced, into shared memory.  Neither has a size gate.
 
 Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the
 words' bits reinterpreted; ``prev_cum`` is int64 [4, nw].  The kernels take
@@ -45,6 +51,7 @@ launch the kernel or raise.  ``<wrapper>.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -91,8 +98,65 @@ def rank4_plain(prev_words, prev_cum, pos) -> torch.Tensor:
     return out.T.to(torch.int32).contiguous()
 
 
+BLOCK_WORDS = 6  # 32-bit words in a block of the rank-block table
+
+
+def build_rank_blocks(prev_words, prev_cum) -> torch.Tensor:
+    """The rank-block table of a rank structure, on the structure's device:
+    int32 [4, nblk, 8] with nblk = nw // 6 + 1.
+
+    Block k of base b is one aligned 32-byte sector: the int64 count of the
+    set bits before word 6k (in the first two int32, little-endian), then
+    words 6k .. 6k+5.  Words past the structure are zero and the blocks
+    there carry the totals, so a position equal to 32*nw is answered like
+    any other; the table always holds at least one such word."""
+    _check_structure("build_rank_blocks", prev_words, prev_cum)
+    nw = prev_words.shape[1]
+    nblk = nw // BLOCK_WORDS + 1
+    if nblk * BLOCK_WORDS >= 1 << 32:
+        raise ValueError("build_rank_blocks: word indices must fit 32 bits")
+    totals = prev_cum[:, -1] + popcount32(i32_to_u32(prev_words[:, -1]))
+    blocks = torch.zeros((4, nblk, 8), dtype=torch.int32, device=prev_words.device)
+    padded = blocks.new_zeros((4, nblk * BLOCK_WORDS))
+    padded[:, :nw] = prev_words
+    blocks[:, :, 2:] = padded.view(4, nblk, BLOCK_WORDS)
+    counts = torch.cat([prev_cum, totals[:, None]], dim=1)[:, ::BLOCK_WORDS]
+    blocks.view(torch.int64)[:, :, 0] = counts
+    return blocks
+
+
+def _check_blocks(name, blocks):
+    if (
+        blocks.dtype != torch.int32
+        or blocks.dim() != 3
+        or blocks.shape[0] != 4
+        or blocks.shape[1] == 0
+        or blocks.shape[2] != 8
+    ):
+        raise TypeError(f"{name}: the rank-block table must be int32 [4, nblk>0, 8]")
+
+
+def rank_blocks_plain(blocks, b, pos) -> torch.Tensor:
+    """rank of prev[base b] at positions pos (b and pos the same shape) from
+    the rank-block table: int64, the same values as ``rank_plain`` on the
+    structure the table was built from."""
+    nblk = blocks.shape[1]
+    pos = pos.to(torch.int64).clamp(min=0)
+    word = (pos >> 5).clamp(max=nblk * BLOCK_WORDS - 1)
+    blk = word // BLOCK_WORDS
+    flat = b.to(torch.int64) * nblk + blk
+    count = blocks.view(torch.int64).reshape(-1, 4)[flat, 0]
+    words = i32_to_u32(blocks.reshape(-1, 8)[flat][..., 2:])  # [..., 6]
+    at = (word - blk * BLOCK_WORDS)[..., None]
+    j = torch.arange(BLOCK_WORDS, device=blocks.device)
+    partial = low_bits_mask(pos & 31)[..., None]
+    mask = torch.where(j < at, MASK32, torch.where(j == at, partial, 0))
+    return count + popcount32(words & mask).sum(dim=-1)
+
+
 TILE_W = 1024  # word columns per tile of the tiled rank table
 Q_BLOCK = 1024  # queries a block of the rank4_tiled kernel serves
+COUNTER_INTS = 19  # ints of counters a tile takes in the bucketing kernels' scratch
 
 
 class Rank4Tiles(NamedTuple):
@@ -138,16 +202,24 @@ def rank4_tiled_plain(tiles: Rank4Tiles, pos) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def tile_of(tiles: Rank4Tiles, pos) -> torch.Tensor:
+    """The tile each position's word column lies in: int32 [B]."""
+    ncol = tiles.words.shape[0]
+    return ((pos >> 5).clamp(0, ncol - 1) // TILE_W).to(torch.int32)
+
+
 def tile_buckets(tile: torch.Tensor, n_tiles: int):
-    """The queries' tile ids [B] sorted and cut into the rank4_tiled kernel's
-    blocks: (perm, bt, blk_first, q_first, q_count).
+    """Plain version of the bucketing kernels of ``rank4_tiled``
+    (``tile_buckets_kernel``): the queries' tile ids [B] sorted and cut into
+    the rank kernel's blocks: (perm, bt, blk_first, q_first, q_count).
 
     ``perm`` [B] sorts the queries by tile.  Tile t's bucket is the sorted
     queries [q_first[t], q_first[t] + q_count[t]), served by the blocks
     blk_first[t] .. in steps of Q_BLOCK queries; ``bt`` int32 [n_blocks]
     names each block's tile and is >= n_tiles for the blocks past the last
     bucket.  n_blocks is the bound ceil(B / Q_BLOCK) + n_tiles, fixed by the
-    shapes, so nothing here waits for the device."""
+    shapes, so nothing here waits for the device.  The order inside a bucket
+    is left open, here as in the kernels."""
     B = tile.shape[0]
     dev = tile.device
     tile_s, perm = torch.sort(tile)
@@ -170,14 +242,13 @@ def gather_sizes_plain(entry_sizes, idx) -> torch.Tensor:
     return entry_sizes[idx.to(torch.int64)]
 
 
-def push_front_plain(prev_words, prev_cum, entry_sizes, fixed, begin, end,
-                     size, b):
-    """One batched push_front step; lanes with begin >= end come back as
-    (begin, begin, size)."""
+def _push_front(rank, entry_sizes, fixed, begin, end, size, b):
+    """One batched push_front step over ``rank(b, pos)``; lanes with
+    begin >= end come back as (begin, begin, size)."""
     n = entry_sizes.shape[0]
     fixed_b = fixed[b.to(torch.int64)]
-    nb = fixed_b + rank_plain(prev_words, prev_cum, b, begin)
-    ne = fixed_b + rank_plain(prev_words, prev_cum, b, end)
+    nb = fixed_b + rank(b, begin)
+    ne = fixed_b + rank(b, end)
     new_size = size + 1
     # kick begin forward if the first entry is too short to hold b+S
     sizes_nb = entry_sizes[nb.clamp(0, n - 1)]
@@ -191,10 +262,18 @@ def push_front_plain(prev_words, prev_cum, entry_sizes, fixed, begin, end,
     )
 
 
-def chain_window_plain(prev_words, prev_cum, entry_sizes, fixed, win, m,
-                       depth: int):
-    """Plain version of ``chain_window``: the find-window loop over
-    push_front."""
+def push_front_plain(prev_words, prev_cum, entry_sizes, fixed, begin, end,
+                     size, b):
+    """One batched push_front step against the structure as stored."""
+    return _push_front(
+        lambda b, pos: rank_plain(prev_words, prev_cum, b, pos),
+        entry_sizes, fixed, begin, end, size, b,
+    )
+
+
+def chain_window_plain(blocks, entry_sizes, fixed, win, m, depth: int):
+    """Plain version of ``chain_window``: the find-window loop of push_front
+    steps, the ranks read from the rank-block table."""
     P = win.shape[0]
     dev = win.device
     n = entry_sizes.shape[0]
@@ -204,9 +283,9 @@ def chain_window_plain(prev_words, prev_cum, entry_sizes, fixed, win, m,
     size = torch.zeros(P, dtype=torch.int32, device=dev)
     for s in range(depth):
         started = s >= (depth - m)
-        nb, ne, ns = push_front_plain(
-            prev_words, prev_cum, entry_sizes, fixed, begin, end, size,
-            win[:, s].to(torch.int64),
+        nb, ne, ns = _push_front(
+            lambda b, pos: rank_blocks_plain(blocks, b, pos),
+            entry_sizes, fixed, begin, end, size, win[:, s].to(torch.int64),
         )
         begin = torch.where(started, nb, begin)
         end = torch.where(started, ne, end)
@@ -272,14 +351,7 @@ def rank4(prev_words, prev_cum, pos) -> torch.Tensor:
 rank4.launches = 0
 
 
-def rank4_tiled(tiles: Rank4Tiles, pos) -> torch.Tensor:
-    """All-four-bases rank at each position against the tiled table: int32
-    [B, 4], the same values as ``rank4`` on the structure the table was
-    built from.
-
-    pos int64 [B] in [0, 32*nw].  The sort of the queries by tile and the
-    cut into blocks are tensor code (``tile_buckets``); the rank itself,
-    the un-permute included, is the kernel."""
+def _check_tiles(name, tiles: Rank4Tiles, pos):
     words, rel, base = tiles
     if (
         words.dtype != torch.int32
@@ -294,33 +366,92 @@ def rank4_tiled(tiles: Rank4Tiles, pos) -> torch.Tensor:
         or base.shape[0] == 0
     ):
         raise TypeError(
-            "rank4_tiled: want words int32 [n_tiles*TILE_W, 4], rel int16 of "
+            f"{name}: want words int32 [n_tiles*TILE_W, 4], rel int16 of "
             "the same shape, base int64 [n_tiles>0, 4]"
         )
     if pos.dtype != torch.int64 or pos.dim() != 1:
-        raise TypeError("rank4_tiled: pos must be a 1-D int64 tensor")
+        raise TypeError(f"{name}: pos must be a 1-D int64 tensor")
+    if pos.shape[0] >= 1 << 31:
+        raise ValueError(f"{name}: at most 2^31 - 1 positions a call")
+
+
+_KERNEL_CONSTANTS = {
+    "rank4_tiled": (
+        ("bgt_rank4_tiled_tile_w", TILE_W), ("bgt_rank4_tiled_q_block", Q_BLOCK),
+        ("bgt_rank4_tiled_counter_ints", COUNTER_INTS),
+    ),
+    "chain_window": (("bgt_chain_window_block_words", BLOCK_WORDS),),
+}
+
+
+@functools.cache
+def _constants_checked(kernel: str) -> bool:
+    """The layout constants a kernel was compiled with are the wrapper's:
+    asked of the library once, when it is first loaded."""
+    for symbol, value in _KERNEL_CONSTANTS[kernel]:
+        if _build.function(kernel, symbol, [])() != value:
+            raise RuntimeError(f"{kernel}: {symbol} differs from the wrapper's")
+    return True
+
+
+def _bucket_scratch(n_tiles: int, B: int, dev):
+    """(scratch, n_blocks) for one call of the bucketing kernels: one int32
+    buffer holding q_count, q_first and blk_first [3, n_tiles], the
+    kernels' working counters, the block map bt [n_blocks] and, 8-byte
+    aligned, the B query records of 8 bytes.  Nothing in it is set here."""
+    n_blocks = -(-B // Q_BLOCK) + n_tiles
+    used = COUNTER_INTS * n_tiles + n_blocks
+    scratch = torch.empty(used + (used & 1) + 2 * B, dtype=torch.int32, device=dev)
+    return scratch, n_blocks
+
+
+def tile_buckets_kernel(tiles: Rank4Tiles, pos):
+    """The bucketing kernels of ``rank4_tiled`` alone, for CUDA tensors:
+    (at, perm, bt, blk_first, q_first, q_count), all int32.  Slot s of the
+    buckets holds query perm[s], which lies at position at[s] of its tile;
+    the last five are, but for the order inside a bucket, the values of
+    ``tile_buckets``.  ``rank4_tiled`` queues the same kernels itself; this
+    entry is for checks and timing."""
+    _check_tiles("tile_buckets_kernel", tiles, pos)
+    _check_cuda("tile_buckets_kernel", pos)
+    _constants_checked("rank4_tiled")
+    B, n_tiles = pos.shape[0], tiles.base.shape[0]
+    scratch, n_blocks = _bucket_scratch(n_tiles, B, pos.device)
+    _build.launch(
+        "rank4_tiled", "bgt_tile_buckets", [_VP, _VP] + [_LL] * 4, pos.device,
+        _build.ptr(pos), _build.ptr(scratch), B, tiles.words.shape[0],
+        n_tiles, n_blocks,
+    )
+    q_count, q_first, blk_first = scratch[: 3 * n_tiles].view(3, n_tiles)
+    bt = scratch[COUNTER_INTS * n_tiles :][:n_blocks]
+    recs = scratch[scratch.shape[0] - 2 * B :].view(B, 2)  # little-endian halves
+    return recs[:, 1], recs[:, 0], bt, blk_first, q_first, q_count
+
+
+def rank4_tiled(tiles: Rank4Tiles, pos) -> torch.Tensor:
+    """All-four-bases rank at each position against the tiled table: int32
+    [B, 4], the same values as ``rank4`` on the structure the table was
+    built from.
+
+    pos int64 [B] in [0, 32*nw].  One call queues the bucketing of the
+    queries by tile (histogram, scan, scatter) and the rank kernel, which
+    writes each result to its query's own place."""
+    _check_tiles("rank4_tiled", tiles, pos)
     if pos.device.type == "cpu":
         return rank4_tiled_plain(tiles, pos)
+    words, rel, base = tiles
     _check_cuda("rank4_tiled", pos, words, rel, base)
-    for symbol, value in (
-        ("bgt_rank4_tiled_tile_w", TILE_W), ("bgt_rank4_tiled_q_block", Q_BLOCK)
-    ):
-        if _build.function("rank4_tiled", symbol, [])() != value:
-            raise RuntimeError(f"rank4_tiled: {symbol} differs from the wrapper's")
-    B = pos.shape[0]
-    n_tiles = base.shape[0]
+    _constants_checked("rank4_tiled")
+    B, n_tiles = pos.shape[0], base.shape[0]
     out = torch.empty((B, 4), dtype=torch.int32, device=pos.device)
     if B == 0:
         return out
-    tile = ((pos >> 5).clamp(0, words.shape[0] - 1) // TILE_W).to(torch.int32)
-    perm, bt, blk_first, q_first, q_count = tile_buckets(tile, n_tiles)
-    pos_sorted = pos[perm]
+    scratch, n_blocks = _bucket_scratch(n_tiles, B, pos.device)
     _build.launch(
-        "rank4_tiled", "bgt_rank4_tiled", [_VP] * 10 + [_LL, _LL], pos.device,
-        _build.ptr(words), _build.ptr(rel), _build.ptr(base),
-        _build.ptr(pos_sorted), _build.ptr(perm), _build.ptr(bt),
-        _build.ptr(blk_first), _build.ptr(q_first), _build.ptr(q_count),
-        _build.ptr(out), n_tiles, bt.shape[0],
+        "rank4_tiled", "bgt_rank4_tiled", [_VP] * 6 + [_LL] * 4, pos.device,
+        _build.ptr(words), _build.ptr(rel), _build.ptr(base), _build.ptr(pos),
+        _build.ptr(scratch), _build.ptr(out), B, words.shape[0], n_tiles,
+        n_blocks,
     )
     rank4_tiled.launches += 1
     return out
@@ -357,14 +488,15 @@ def gather_sizes(entry_sizes, idx) -> torch.Tensor:
 gather_sizes.launches = 0
 
 
-def chain_window(prev_words, prev_cum, entry_sizes, fixed, win, m, depth: int):
+def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):
     """find_window over pre-built complemented window rows, the whole chain
     in one launch.
 
+    blocks int32 [4, nblk, 8], the rank-block table (``build_rank_blocks``);
     win uint8 [P, depth] (``probes._window_bases``); m int32 [P] per-lane
     window length; fixed int64 [5].  Returns (begin int64 [P], end int64
     [P], size int32 [P]): the contract of ``probes.find_window``."""
-    _check_structure("chain_window", prev_words, prev_cum)
+    _check_blocks("chain_window", blocks)
     if (
         win.dtype != torch.uint8
         or win.dim() != 2
@@ -381,12 +513,9 @@ def chain_window(prev_words, prev_cum, entry_sizes, fixed, win, m, depth: int):
             "int64 [5], entry_sizes int32 [n]"
         )
     if win.device.type == "cpu":
-        return chain_window_plain(
-            prev_words, prev_cum, entry_sizes, fixed, win, m, depth
-        )
-    _check_cuda(
-        "chain_window", win, prev_words, prev_cum, entry_sizes, fixed, m
-    )
+        return chain_window_plain(blocks, entry_sizes, fixed, win, m, depth)
+    _check_cuda("chain_window", win, blocks, entry_sizes, fixed, m)
+    _constants_checked("chain_window")
     P = win.shape[0]
     dev = win.device
     begin = torch.empty(P, dtype=torch.int64, device=dev)
@@ -396,11 +525,10 @@ def chain_window(prev_words, prev_cum, entry_sizes, fixed, win, m, depth: int):
         return begin, end, size
     _build.launch(
         "chain_window", "bgt_chain_window",
-        [_VP] * 9 + [_LL, _LL, _LL, ctypes.c_int], dev,
-        _build.ptr(prev_words), _build.ptr(prev_cum), _build.ptr(entry_sizes),
-        _build.ptr(fixed), _build.ptr(win), _build.ptr(m), _build.ptr(begin),
-        _build.ptr(end), _build.ptr(size), prev_words.shape[1],
-        entry_sizes.shape[0], P, depth,
+        [_VP] * 8 + [_LL, _LL, _LL, ctypes.c_int], dev,
+        _build.ptr(blocks), _build.ptr(entry_sizes), _build.ptr(fixed),
+        _build.ptr(win), _build.ptr(m), _build.ptr(begin), _build.ptr(end),
+        _build.ptr(size), blocks.shape[1], entry_sizes.shape[0], P, depth,
     )
     chain_window.launches += 1
     return begin, end, size
@@ -418,12 +546,11 @@ def contig_windows(text: torch.Tensor, depth: int) -> torch.Tensor:
     return (3 - padded.unfold(0, depth, 1)[:P]).to(torch.uint8).contiguous()
 
 
-def chain_fixed(prev_words, prev_cum, entry_sizes, fixed, text, depth: int):
+def chain_fixed(blocks, entry_sizes, fixed, text, depth: int):
     """(begin, end, size) of the depth-length window ending at every text
     position.  Positions p < depth-1 read a zero halo: callers mask them."""
     P = text.shape[0]
     m = torch.full((P,), depth, dtype=torch.int32, device=text.device)
     return chain_window(
-        prev_words, prev_cum, entry_sizes, fixed,
-        contig_windows(text, depth), m, depth,
+        blocks, entry_sizes, fixed, contig_windows(text, depth), m, depth
     )

@@ -11,7 +11,9 @@ from seed 12345.  The path is build_seqset -> build_readmap -> save/load ->
 find of all 240 000 oriented reads -> rank4 at the found ranges' ends ->
 push4 -> probe_exact (depth 32) over every position of the doubled fwd+rc
 genome text.  Last, the two rank kernels are timed side by side on a rank
-structure that outgrows the card's L2 cache.
+structure that outgrows the card's L2 cache, where the rank-block table and
+the bucketing kernels of rank4_tiled are held against their plain versions
+too.
 
 Any failure raises and the exit code is non-zero; there is no CPU fallback.
 Stage times are host-clock times read after ``torch.cuda.synchronize()``;
@@ -19,7 +21,9 @@ kernel times are CUDA-event times over repeated launches.  The last line of
 standard output is ``{"ok": true, "device": {...}}``.  With ``--profile`` the
 main path runs twice more, warm and then with each stage under
 ``torch.profiler``, and each stage's cold and warm time, the device's busy
-time and its heaviest kernels go to OUT.json.
+time and its heaviest kernels go to OUT.json; the ``kernels`` and
+``rank_past_l2`` lines then also split a ``rank4_tiled`` call into its
+kernels.
 """
 
 from __future__ import annotations
@@ -97,17 +101,33 @@ def _profiled(fn, stage):
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=device_us, reverse=True)
+    kernels.sort(key=_device_us, reverse=True)
     PROFILE[stage] = {
-        "device_busy_s": sum(device_us(e) for e in kernels) / 1e6,
+        "device_busy_s": sum(_device_us(e) for e in kernels) / 1e6,
         "launches": sum(e.count for e in kernels),
-        "top": [[e.key[:80], e.count, device_us(e) / 1e3] for e in kernels[:8]],
+        "top": [[e.key[:80], e.count, _device_us(e) / 1e3] for e in kernels[:8]],
     }
     return out, seconds
+
+
+def _device_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def kernels_us(fn, reps: int = 10) -> dict:
+    """Mean device microseconds of every kernel that one fn() launches, by
+    the kernel's name (cut at its argument list), under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:48]: _device_us(e) / reps for e in prof.key_averages() if _device_us(e)}
 
 
 def event_ms(fn, reps: int, warm: int = 2, stall=None) -> float:
@@ -182,10 +202,58 @@ def make_workload(genome_len: int, n_reads: int, n_snps: int, read_len: int):
 # ---------------------------------------------------------------------------
 
 
+def check_rank_blocks(name, words, cum, blocks, pos):
+    """The rank-block table's rank against the structure's, base by base."""
+    for b in range(4):
+        base = torch.full_like(pos, b)
+        require_equal(f"rank_blocks {name} base {b}", rank4_ops.rank_blocks_plain(blocks, base, pos),
+                      rank4_ops.rank_plain(words, cum, base, pos))
+
+
+def check_buckets(name, tiles, pos):
+    """The bucketing kernels of rank4_tiled against tile_buckets: the same
+    buckets and block map, and the same queries in every bucket (the order
+    inside a bucket is left open on both sides)."""
+    n_tiles = tiles.base.shape[0]
+    at, perm, *got = rank4_ops.tile_buckets_kernel(tiles, pos)
+    want_perm, *want = rank4_ops.tile_buckets(rank4_ops.tile_of(tiles, pos), n_tiles)
+    for what, g, w in zip(("bt", "blk_first", "q_first", "q_count"), got, want):
+        require_equal(f"tile_buckets {name} {what}", g.to(torch.int64), w.to(torch.int64))
+    perm = perm.to(torch.int64)
+    in_tile = pos.clamp(0, 32 * tiles.words.shape[0] - 1) % (32 * rank4_ops.TILE_W)
+    require_equal(f"tile_buckets {name} place in the tile", at.to(torch.int64), in_tile[perm])
+    # every query once, and each bucket's slots hold that bucket's queries:
+    # perm and tile_buckets' perm are then equal once sorted inside each bucket
+    bucket = torch.repeat_interleave(torch.arange(n_tiles, device=pos.device), want[3])
+    tile = rank4_ops.tile_of(tiles, pos).to(torch.int64)
+    require_equal(f"tile_buckets {name} perm is a permutation", perm.sort().values, torch.arange(pos.shape[0], device=pos.device))
+    require_equal(f"tile_buckets {name} bucket of each slot", tile[perm], bucket)
+    require_equal(f"tile_buckets {name} plain bucket of each slot", tile[want_perm], bucket)
+
+
+def chain_block_edges(dev, g, words, blocks, nw):
+    """chain_window on a made-up store whose range ends sit on the edges of
+    the rank blocks: the first step ranks 0 and n for n at a block's last
+    entry, the next block's first, and 32*nw; later steps rank wherever
+    those land."""
+    depth = 3
+    win = torch.randint(0, 4, (64, depth), generator=g).to(torch.uint8).to(dev)
+    m = torch.full((64,), depth, dtype=torch.int32, device=dev)
+    m[::5] = 1
+    sizes_all = torch.randint(1, 5, (32 * nw,), generator=g).to(torch.int32).to(dev)
+    for n in sorted({1, 191, 192, 193, 32 * nw - 1, 32 * nw}):
+        if n > 32 * nw:
+            continue
+        fixed = torch.tensor([0, 0, 0, 0, n], device=dev)
+        args = (blocks, sizes_all[:n].contiguous(), fixed, win, m, depth)
+        require_equal(f"chain_window block edge nw={nw} n={n}", rank4_ops.chain_window(*args), rank4_ops.chain_window_plain(*args))
+
+
 def edge_checks(dev):
     """Small and ragged shapes: B not a multiple of the block, pos == 0,
     pos == n, pos == 32*nw, m == 0, m == depth, sizes that are not a
-    multiple of the scan block."""
+    multiple of the scan block, rank blocks that end inside the structure's
+    last word group, buckets that are empty, single or hold every query."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
     for nw in (1, 7, 1000, 1023, 1024, 1025, 3000):
         words64 = torch.randint(0, 1 << 32, (4, nw), generator=g)
@@ -199,7 +267,7 @@ def edge_checks(dev):
         n = 32 * nw - 5
         pos = torch.cat([
             torch.randint(0, n + 1, (1003,), generator=g),
-            torch.tensor([0, 1, 31, 32, n - 1, n, 32 * nw - 1, 32 * nw]),
+            torch.tensor([0, 1, 31, 32, 191, 192, n - 1, n, 32 * nw - 1, 32 * nw]).clamp(max=32 * nw),
         ]).to(dev)
         want = rank4_ops.rank4_plain(words, cum, pos)
         require_equal(f"rank4 nw={nw}", rank4_ops.rank4(words, cum, pos), want)
@@ -207,10 +275,17 @@ def edge_checks(dev):
         # sparse one (read in place), one query, and every query in one tile
         tiles = rank4_ops.build_rank4_tiles(words, cum)
         require_equal(f"rank4_tiled table nw={nw}", rank4_ops.rank4_tiled_plain(tiles, pos), want)
+        middle = (pos >> 15) == 1  # the queries of the second tile, sent to the first: an empty tile
         for name, sel in (("dense", pos), ("sparse", pos[-40:].contiguous()), ("one", pos[-1:].contiguous()),
-                          ("one tile", (pos % min(n + 1, 32 * 1024)).contiguous())):
+                          ("one tile", (pos % min(n + 1, 32 * 1024)).contiguous()),
+                          ("empty tile", torch.where(middle, pos % 1000, pos))):
             require_equal(f"rank4_tiled {name} nw={nw}", rank4_ops.rank4_tiled(tiles, sel),
                           rank4_ops.rank4_plain(words, cum, sel))
+            check_buckets(f"{name} nw={nw}", tiles, sel)
+        # the rank-block table: nw that is and is not a multiple of the block
+        blocks = rank4_ops.build_rank_blocks(words, cum)
+        check_rank_blocks(f"nw={nw}", words, cum, blocks, pos)
+        chain_block_edges(dev, g, words, blocks, nw)
     sizes = torch.randint(1, 70000, (777,), generator=g).to(torch.int32).to(dev)
     idx = torch.randint(0, 777, (5, 201), generator=g).to(dev)
     require_equal("gather_sizes", rank4_ops.gather_sizes(sizes, idx), rank4_ops.gather_sizes_plain(sizes, idx))
@@ -222,23 +297,56 @@ def edge_checks(dev):
     rng = np.random.default_rng(SEED)
     text = torch.from_numpy(rng.integers(0, 4, 6000, dtype=np.uint8)).to(dev)
     text[:3000] = torch.from_numpy(codes[:75].reshape(-1)).to(dev)
-    for depth in (1, 17, 32):
+    d = ss.d
+    check_rank_blocks("seqset", d.prev_words, d.prev_cum, d.rank_blocks, torch.arange(ss.n_entries + 1, device=dev))
+    # depths whose rows the kernel fetches 16 bytes at a time (16, 32, 48) and byte by byte (1, 17)
+    for depth in (1, 16, 17, 32, 48):
         pos = torch.arange(0, 6000, 3, device=dev)[:1999]
-        m = torch.randint(0, depth + 1, (pos.shape[0],), generator=g).to(torch.int32).to(dev)
-        m[:5] = 0
-        m[5:10] = depth
+        mixed = torch.randint(0, depth + 1, (pos.shape[0],), generator=g).to(torch.int32).to(dev)
+        mixed[:5] = 0
+        mixed[5:10] = depth
         win = probes._window_bases(text, pos, depth)
-        d = ss.d
-        args = (d.prev_words, d.prev_cum, d.entry_sizes, d.fixed, win, m, depth)
-        require_equal(f"chain_window depth={depth}", rank4_ops.chain_window(*args), rank4_ops.chain_window_plain(*args))
-    got = rank4_ops.chain_fixed(d.prev_words, d.prev_cum, d.entry_sizes, d.fixed, text, 17)
+        for name, m in (("mixed m", mixed), ("m == depth", torch.full_like(mixed, depth)), ("m == 0", torch.zeros_like(mixed))):
+            args = (d.rank_blocks, d.entry_sizes, d.fixed, win, m, depth)
+            require_equal(f"chain_window depth={depth} {name}", rank4_ops.chain_window(*args), rank4_ops.chain_window_plain(*args))
+    got = rank4_ops.chain_fixed(d.rank_blocks, d.entry_sizes, d.fixed, text, 17)
     want = probes.find_window(d, text, torch.arange(6000, device=dev), 17, 17)
     keep = torch.arange(6000, device=dev) >= 16
     require_equal("chain_fixed", tuple(x[keep] for x in got), tuple(x[keep] for x in want))
     torch.cuda.synchronize()
 
 
-def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m):
+def chain_sectors(d, win, m, depth):
+    """What one chain_window call asks of the memory system, counted by
+    replaying its steps with tensor code: (steps, sectors, sectors as
+    stored).  A live step asks for one 32-byte sector of the rank-block
+    table for ``begin``, one more when ``end`` lies in another block, and one
+    of entry_sizes when the pushed range is not empty; against the structure
+    as stored the two ranks ask for four (a word and a count each)."""
+    blocks, n = d.rank_blocks, d.n_entries
+    last_word = blocks.shape[1] * rank4_ops.BLOCK_WORDS - 1
+    begin, end, size = probes._start(d, win.shape[0])
+    steps = sectors = stored = 0
+    for s in range(depth):
+        live = (s >= depth - m) & (begin < end)
+        dead = (s >= depth - m) & (begin >= end)
+        kb = (begin >> 5).clamp(max=last_word) // rank4_ops.BLOCK_WORDS
+        ke = (end >> 5).clamp(max=last_word) // rank4_ops.BLOCK_WORDS
+        b = win[:, s].to(torch.int64)
+        nb = d.fixed[b] + rank4_ops.rank_blocks_plain(blocks, b, begin)
+        ne = d.fixed[b] + rank4_ops.rank_blocks_plain(blocks, b, end)
+        reads_size = live & (nb < ne)
+        kick = reads_size & (d.entry_sizes[nb.clamp(0, n - 1)] < size + 1)
+        steps += int(live.sum())
+        sectors += int(live.sum()) + int((live & (ke != kb)).sum()) + int(reads_size.sum())
+        stored += 4 * int(live.sum()) + int(reads_size.sum())
+        begin = torch.where(live, nb + kick, begin)
+        end = torch.where(live, ne, torch.where(dead, begin, end))
+        size = torch.where(live, size + 1, size)
+    return steps, sectors, stored, (begin, end, size)
+
+
+def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe_m_mixed, breakdown=False):
     """Each kernel at the main path's shapes: equality with the plain
     version, times, and the least time the card could take.  ``ms``,
     ``plain_ms`` and ``library_ms`` are device times (calls queued behind a
@@ -270,6 +378,7 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m):
     nw = d.prev_words.shape[1]
     n = d.n_entries
     structure_bytes = 4 * nw * (4 + 8)
+    blocks_bytes = d.rank_blocks.numel() * 4
 
     # rank4 as push4 calls it: both ends of every find range, stacked
     pos = torch.cat([find_ranges.begin, find_ranges.end]).contiguous()
@@ -283,14 +392,15 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m):
     )
 
     # rank4_tiled as push4 calls it: the same positions against the tiled
-    # table; the time is the whole call (the sort by tile, the cut into
-    # blocks and the kernel), prologue_ms the part before the kernel
+    # table; the time is the whole call (the bucketing kernels and the rank
+    # kernel, one C call), prologue_ms the bucketing kernels alone and
+    # plain_prologue_ms their plain version (a sort, two searches, a scan)
     tiles = d.rank4_tiles
     table_bytes = tiles.words.numel() * 4 + tiles.rel.numel() * 2 + tiles.base.numel() * 8
+    check_buckets("main path", tiles, pos)
 
-    def prologue():
-        tile = ((pos >> 5).clamp(0, tiles.words.shape[0] - 1) // rank4_ops.TILE_W).to(torch.int32)
-        return pos[rank4_ops.tile_buckets(tile, tiles.base.shape[0])[0]]
+    def plain_prologue():
+        return pos[rank4_ops.tile_buckets(rank4_ops.tile_of(tiles, pos), tiles.base.shape[0])[0]]
 
     row(
         "rank4_tiled",
@@ -299,7 +409,10 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m):
         B * 8 + B * 16 + min(B * 24, table_bytes),
         B * 28,
     )
-    rows[-1]["prologue_ms"] = event_ms(prologue, 20, stall=stall)
+    rows[-1]["prologue_ms"] = event_ms(lambda: rank4_ops.tile_buckets_kernel(tiles, pos), 20, stall=stall)
+    rows[-1]["plain_prologue_ms"] = event_ms(plain_prologue, 20, stall=stall)
+    if breakdown:
+        rows[-1]["kernels_us"] = kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos))
     require_equal("rank4_tiled vs rank4", rank4_ops.rank4_tiled(tiles, pos), rank4_ops.rank4(d.prev_words, d.prev_cum, pos))
 
     # gather_sizes as push4 calls it: the [B/2, 4] pushed begins
@@ -315,22 +428,43 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m):
         plain_reps=20,
     )
 
-    # chain_window as one probe_exact round calls it
+    # chain_window as a probe_exact round calls it, twice: every lane at
+    # full depth, and the per-lane lengths the bisection's third round tests.
+    # The byte bound counts each input once (rows, lengths, the block table,
+    # the sizes touched) and the outputs; about 60 integer operations a step.
+    # Beside it: the sectors this run's steps ask for, which is what the
+    # kernel's time follows while everything sits in L2.
     win = probes._window_bases(probe_text, probe_pos, DEPTH)
     P = probe_pos.shape[0]
-    args = (d.prev_words, d.prev_cum, d.entry_sizes, d.fixed, win, probe_m, DEPTH)
-    _, e, s = rank4_ops.chain_window(*args)
-    # steps this run's data needs: every successful push plus the one failing
-    # push of a lane that died; about 48 integer operations a step
-    steps = int(s.sum()) + int((s < probe_m).sum())
-    row(
-        "chain_window",
-        lambda: rank4_ops.chain_window(*args),
-        lambda: rank4_ops.chain_window_plain(*args),
-        P * DEPTH + P * 4 + P * 20 + structure_bytes + min(steps * 4, n * 4) + 40,
-        steps * 48,
-        plain_reps=2,
-    )
+    for case, m in (("m == depth", probe_m), ("mixed m: round 3 of probe_exact", probe_m_mixed)):
+        args = (d.rank_blocks, d.entry_sizes, d.fixed, win, m, DEPTH)
+        steps, sectors, stored, replayed = chain_sectors(d, win, m, DEPTH)
+        require_equal(f"chain_window replay, {case}", rank4_ops.chain_window(*args), replayed)
+        row(
+            "chain_window",
+            lambda: rank4_ops.chain_window(*args),
+            lambda: rank4_ops.chain_window_plain(*args),
+            P * DEPTH + P * 4 + P * 20 + blocks_bytes + min(steps * 4, n * 4) + 40,
+            steps * 60,
+            plain_reps=2,
+        )
+        ms = rows[-1]["ms"]
+        rows[-1].update({
+            "case": case,
+            "steps": steps,
+            "sectors": sectors,
+            "sectors_per_step": sectors / max(steps, 1),
+            "sectors_as_stored": stored,
+            "sectors_per_s": sectors / ms * 1e3,
+            "sector_bytes_per_s": sectors * 32 / ms * 1e3,
+            "mean_m": float(m.to(torch.float64).mean()),
+            # the same call on the first 1/16 and 1/4 of the lanes: time that
+            # follows the lanes is throughput, time that does not is latency
+            "ms_by_lanes": {
+                str(k): event_ms(lambda: rank4_ops.chain_window(*args[:3], win[:k], m[:k], DEPTH), 20, stall=stall)
+                for k in (P // 16, P // 4, P)
+            },
+        })
 
     # rank_cum as the build calls it: one base row
     words = d.prev_words[0].contiguous()
@@ -345,10 +479,23 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m):
     return rows
 
 
-def rank_past_l2(dev, stall):
+def bisection_lengths(d, text, pos, seg_lo, depth, round_no):
+    """The per-lane window lengths that round ``round_no`` (from 1) of
+    probe_exact's bisection hands to chain_window."""
+    win = probes._window_bases(text, pos, depth)
+    lo_m, hi_m = probes._bracket(pos, seg_lo, depth, 0)
+    best = probes._start(d, pos.shape[0])
+    for _ in range(round_no - 1):
+        mid = probes._exact_mid(lo_m, hi_m)
+        lo_m, hi_m, *best = probes._exact_round(lo_m, hi_m, mid, *best, *probes._chain(d, win, mid, depth))
+    return probes._exact_mid(lo_m, hi_m).to(torch.int32).contiguous()
+
+
+def rank_past_l2(dev, stall, breakdown=False):
     """rank4 and rank4_tiled side by side on a random rank structure that
     outgrows the L2 cache, at uniformly random positions: equality with the
-    plain version, and device time per call."""
+    plain version, and device time per call; with ``breakdown`` also the
+    time of each kernel inside a rank4_tiled call."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     words = torch.randint(-(1 << 31), 1 << 31, (4, BIG_NW), dtype=torch.int32, device=dev, generator=g)
     cum = torch.stack([rank_cum_ops.rank_cum(words[b]) for b in range(4)]).to(torch.int64)
@@ -358,12 +505,29 @@ def rank_past_l2(dev, stall):
     want = rank4_ops.rank4_plain(words, cum, pos)
     require_equal("rank4 past L2", rank4_ops.rank4(words, cum, pos), want)
     require_equal("rank4_tiled past L2", rank4_ops.rank4_tiled(tiles, pos), want)
+    check_buckets("past L2", tiles, pos)
+    blocks = rank4_ops.build_rank_blocks(words, cum)
+    check_rank_blocks("past L2", words, cum, blocks, pos[: 1 << 20])
+    blocks_bytes = blocks.numel() * 4
+    del blocks
     pos_sorted = pos.sort().values
+    # many tiles: warps whose queries all share a tile, and warps where half do
+    check_buckets("past L2, sorted", tiles, pos_sorted)
+    half = BIG_QUERIES // 2
+    check_buckets("past L2, every other sorted", tiles, torch.stack([pos_sorted[:half], pos[:half]], dim=1).reshape(-1))
+    split = {
+        "rank4_tiled_kernels_us": kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos)),
+        "rank4_tiled_sorted_positions_kernels_us": kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos_sorted)),
+    } if breakdown else {}
     return {
+        **split,
         "words_per_base": BIG_NW,
         "positions": BIG_QUERIES,
         "structure_bytes": words.numel() * 4 + cum.numel() * 8,
         "table_bytes": tiles.words.numel() * 4 + tiles.rel.numel() * 2 + tiles.base.numel() * 8,
+        "rank_blocks_bytes": blocks_bytes,
+        "tiles": tiles.base.shape[0],
+        "rank4_tiled_buckets_ms": event_ms(lambda: rank4_ops.tile_buckets_kernel(tiles, pos), 10, stall=stall),
         "rank4_ms": event_ms(lambda: rank4_ops.rank4(words, cum, pos), 10, stall=stall),
         "rank4_tiled_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos), 10, stall=stall),
         "rank4_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4(words, cum, pos_sorted), 10, stall=stall),
@@ -539,8 +703,10 @@ def main():
 
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
-    rows = kernel_table(ss.d, launches, found, text, probe_pos, probe_m)
-    past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev)))
+    probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
+    breakdown = profile_to is not None
+    rows = kernel_table(ss.d, launches, found, text, probe_pos, probe_m, probe_m_mixed, breakdown)
+    past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:
         # the main path twice more: once as it is, with the allocator and

@@ -9,6 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from biograph_tpu.build.seqset_build import build_seqset as jax_build_seqset
 from biograph_tpu.index import probes as jprobes
@@ -95,18 +96,21 @@ def test_rank4_tiled_plain_vs_xla_and_hbm_pallas(nw):
     np.testing.assert_array_equal(got.numpy(), pallas)
 
 
-def _rank4_tiled_kernel_in_numpy(tiles, pos):
-    """csrc/rank4_tiled.cu block by block on the host, over the wrapper's
-    own sort and cut into blocks: what each block reads and where it writes."""
+def _rank4_tiled_kernel_in_numpy(tiles, pos, buckets=None):
+    """The rank kernel of csrc/rank4_tiled.cu block by block on the host,
+    over the plain bucketing (tile_buckets) or over ``buckets``: what each
+    block reads and where it writes."""
     W, Q = trank4.TILE_W, trank4.Q_BLOCK
     n_tiles = tiles.base.shape[0]
-    tile = ((pos >> 5).clamp(0, tiles.words.shape[0] - 1) // W).to(torch.int32)
-    perm, bt, blk_first, q_first, q_count = (x.numpy() for x in trank4.tile_buckets(tile, n_tiles))
+    if buckets is None:
+        buckets = (x.numpy() for x in trank4.tile_buckets(trank4.tile_of(tiles, pos), n_tiles))
+    perm, bt, blk_first, q_first, q_count = buckets
     assert bt.dtype == np.int32 and len(bt) == -(-len(pos) // Q) + n_tiles
+    # the scatter's records: a query's place inside its tile beside its index
+    at = np.clip(pos.numpy(), 0, 32 * tiles.words.shape[0] - 1)[perm] % (32 * W)
     words = tiles.words.numpy().view(np.uint32)
     rel = np.ascontiguousarray(tiles.rel.numpy()).view(np.uint32)  # [ncol, 2]: two int16 a word
     base = tiles.base.numpy()
-    pos_sorted = pos.numpy()[perm]
     out = np.full((len(pos), 4), -1, np.int64)
     served = 0
     for blk, t in enumerate(bt):
@@ -117,10 +121,9 @@ def _rank4_tiled_kernel_in_numpy(tiles, pos):
         n = min(q_count[t] - k * Q, Q)
         assert n > 0
         for q in range(start, start + n):
-            p = max(int(pos_sorted[q]), 0)
-            lw = min((p >> 5) - t * W, W - 1)
-            assert lw >= 0
-            mask = (1 << (p & 31)) - 1
+            lw = int(at[q]) >> 5
+            assert 0 <= lw < W
+            mask = (1 << (int(at[q]) & 31)) - 1
             w = words[t * W + lw]
             c = rel[t * W + lw]
             r = [int(c[0]) & 0xFFFF, int(c[0]) >> 16, int(c[1]) & 0xFFFF, int(c[1]) >> 16]
@@ -185,6 +188,7 @@ def store():
         entry_sizes=torch.from_numpy(np.asarray(ss.entry_sizes, np.int32).copy()),
         fixed=torch.from_numpy(np.asarray(ss.fixed).copy()),
     )
+    port["blocks"] = trank4.build_rank_blocks(port["prev_words"], port["prev_cum"])
     table = jrank4.build_rank4_table(np.asarray(ss.prev_words), np.asarray(ss.prev_cum))
     sizes_table = jrank4.build_bytes_table(np.asarray(ss.entry_sizes))
     return ss, table, sizes_table, port, text
@@ -208,7 +212,7 @@ def test_chain_window_plain_vs_find_window_and_pallas(store, depth, m_kind):
     win = tprobes._window_bases(torch.from_numpy(text), torch.from_numpy(pos), depth)
     assert win.dtype == torch.uint8
     np.testing.assert_array_equal(win.numpy(), np.asarray(jprobes._window_bases(jnp.asarray(text), jnp.asarray(pos), depth)))
-    args = (port["prev_words"], port["prev_cum"], port["entry_sizes"], port["fixed"], win, torch.from_numpy(m), depth)
+    args = (port["blocks"], port["entry_sizes"], port["fixed"], win, torch.from_numpy(m), depth)
     got = trank4.chain_window_plain(*args)
     assert [g.dtype for g in got] == [torch.int64, torch.int64, torch.int32]
     for g, w in zip(got, want):
@@ -226,7 +230,7 @@ def test_chain_fixed_vs_find_window(store):
     depth = 17
     P = len(text)
     want = jprobes.find_window_jit(ss.d, jnp.asarray(text), jnp.arange(P, dtype=jnp.int64), jnp.full((P,), depth, jnp.int32), depth)
-    got = trank4.chain_fixed(port["prev_words"], port["prev_cum"], port["entry_sizes"], port["fixed"], torch.from_numpy(text), depth)
+    got = trank4.chain_fixed(port["blocks"], port["entry_sizes"], port["fixed"], torch.from_numpy(text), depth)
     keep = np.arange(P) >= depth - 1  # halo positions are caller-masked
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy()[keep], np.asarray(w)[keep])
@@ -245,7 +249,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(store):
         trank_cum.rank_cum(port["prev_cum"][0])
     win = torch.zeros((4, 8), dtype=torch.uint8)
     with pytest.raises(TypeError):
-        trank4.chain_window(port["prev_words"], port["prev_cum"], port["entry_sizes"], port["fixed"], win, pos, 8)
+        trank4.chain_window(port["blocks"], port["entry_sizes"], port["fixed"], win, pos, 8)
+    with pytest.raises(TypeError):  # the structure as stored is not the block table
+        trank4.chain_window(port["prev_words"], port["entry_sizes"], port["fixed"], win, pos.to(torch.int32), 8)
+    with pytest.raises(TypeError):
+        trank4.chain_window(port["blocks"].to(torch.int64), port["entry_sizes"], port["fixed"], win, pos.to(torch.int32), 8)
     tiles = trank4.build_rank4_tiles(port["prev_words"], port["prev_cum"])
     with pytest.raises(TypeError):
         trank4.rank4_tiled(tiles, pos.to(torch.int32))
@@ -253,5 +261,264 @@ def test_wrappers_reject_what_the_kernels_do_not_take(store):
         trank4.rank4_tiled(tiles._replace(rel=tiles.rel.to(torch.int32)), pos)
     with pytest.raises(TypeError):
         trank4.rank4_tiled(tiles._replace(base=tiles.base[:0]), pos)
+    with pytest.raises(ValueError, match="unsupported device"):  # the bucketing kernels have no CPU form but tile_buckets
+        trank4.tile_buckets_kernel(tiles, pos)
     for fn in (trank4.rank4, trank4.rank4_tiled, trank4.gather_sizes, trank4.chain_window, trank_cum.rank_cum):
         assert fn.launches == 0  # nothing launches on the CPU
+
+
+# ---------------------------------------------------------------------------
+# the rank-block table (what chain_window reads) and the bucketing kernels of
+# rank4_tiled, replayed on the host
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nw", [1, 5, 6, 7, 193, 1025])
+def test_rank_blocks_plain_vs_rank_plain_xla_and_pallas(nw):
+    """One 32-byte block answers a rank: the table's plain rank against the
+    structure as stored, the JAX gather path and the TPU kernel in interpret
+    mode, block edges and pos == 32*nw included."""
+    words, cum = _structure(nw + 40, nw)
+    rng = np.random.default_rng(nw + 41)
+    n = nw * 32
+    edges = [0, 1, 31, 32, 33, 191, 192, 193, n - 1, n]
+    pos = np.concatenate([rng.integers(0, n + 1, 600), np.clip(edges, 0, n)]).astype(np.int64)
+    tw, tc, tp = _i32(words), torch.from_numpy(cum), torch.from_numpy(pos)
+    blocks = trank4.build_rank_blocks(tw, tc)
+    W = trank4.BLOCK_WORDS
+    assert blocks.dtype == torch.int32 and blocks.shape == (4, nw // W + 1, 8) and blocks.is_contiguous()
+    assert blocks.shape[1] * W > nw  # a zero word past the structure: pos == 32*nw needs no special case
+    want = np.asarray(jrank4.rank4_xla(jnp.asarray(words), jnp.asarray(cum), jnp.asarray(pos)))
+    pallas = np.asarray(jrank4.rank4_pallas(jrank4.build_rank4_table(words, cum), jnp.asarray(pos), True))
+    totals = cum[:, -1] + np.unpackbits(words[:, -1:].view(np.uint8)).reshape(4, 32).sum(axis=1)
+    for b in range(4):
+        base = torch.full_like(tp, b)
+        got = trank4.rank_blocks_plain(blocks, base, tp)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, trank4.rank_plain(tw, tc, base, tp))
+        np.testing.assert_array_equal(got.numpy(), want[:, b])
+        np.testing.assert_array_equal(got.numpy(), pallas[:, b])
+        assert int(got[-1]) == totals[b]
+        # 2-D positions, a negative one (reads as 0) and one past the table (the totals)
+        odd = torch.tensor([[-3, 0], [n, n + 5000]])
+        assert trank4.rank_blocks_plain(blocks, torch.full_like(odd, b), odd).tolist() == [[0, 0], [totals[b]] * 2]
+
+
+def test_rank_blocks_keep_exact_int64_counts():
+    """Counts past 2^31 stay exact: the block's count is a whole int64."""
+    words, cum = _structure(77, 50)
+    big = cum + (1 << 40)
+    tw, tp = _i32(words), torch.arange(0, 1601, 7)
+    blocks = trank4.build_rank_blocks(tw, torch.from_numpy(big))
+    for b in range(4):
+        base = torch.full_like(tp, b)
+        got = trank4.rank_blocks_plain(blocks, base, tp)
+        assert torch.equal(got, trank4.rank_plain(tw, torch.from_numpy(cum), base, tp) + (1 << 40))
+
+
+def _chain_window_kernel_in_numpy(blocks, sizes, fixed, win, m, depth):
+    """csrc/chain_window.cu lane by lane on the host: the window row in
+    16-byte pieces, one block load per range end, the same-block shortcut,
+    the rank from 64-bit masks, the early exit of an empty range.  Returns
+    (begin, end, size, [block loads, steps that took the shortcut])."""
+    W = trank4.BLOCK_WORDS
+    nblk = blocks.shape[1]
+    sectors = blocks.numpy().view(np.uint64)  # [4, nblk, 4]: count, words 0-1, 2-3, 4-5
+    last_word = nblk * W - 1
+    n = len(sizes)
+    vec16 = depth % 16 == 0
+    all64 = (1 << 64) - 1
+
+    def rank_in_block(sector, r):
+        m0 = all64 if r >= 64 else (1 << r) - 1
+        m1 = all64 if r >= 128 else ((1 << (r - 64)) - 1 if r > 64 else 0)
+        m2 = (1 << (r - 128)) - 1 if r > 128 else 0
+        count, q0, q1, q2 = (int(x) for x in sector)
+        return count + bin(q0 & m0).count("1") + bin(q1 & m1).count("1") + bin(q2 & m2).count("1")
+
+    out = np.zeros((3, len(m)), np.int64)
+    loads = shortcuts = 0
+    for q in range(len(m)):
+        first_step = max(depth - int(m[q]), 0)
+        begin, end, size, alive = 0, n, 0, True
+        s0 = first_step & ~15
+        while alive and s0 < depth:
+            if vec16:
+                chunk = win[q, s0 : s0 + 16]
+                assert len(chunk) == 16
+            else:
+                chunk = [win[q, s0 + i] if s0 + i < depth else 0 for i in range(16)]
+            for i in range(16):
+                s = s0 + i
+                if s < first_step or s >= depth:
+                    continue
+                if begin >= end:
+                    end, alive = begin, False
+                    break
+                b = int(chunk[i]) & 3
+                pb, pe = max(begin, 0), max(end, 0)
+                wb, we = min(pb >> 5, last_word), min(pe >> 5, last_word)
+                kb, ke = wb // W, we // W
+                sector_b = sectors[b, kb]
+                loads += 1
+                if ke != kb:
+                    sector_e = sectors[b, ke]
+                    loads += 1
+                else:
+                    sector_e = sector_b
+                    shortcuts += 1
+                nb = int(fixed[b]) + rank_in_block(sector_b, (wb - kb * W) * 32 + (pb & 31))
+                ne = int(fixed[b]) + rank_in_block(sector_e, (we - ke * W) * 32 + (pe & 31))
+                first = min(max(nb, 0), n - 1)
+                if nb < ne and sizes[first] < size + 1:
+                    nb += 1
+                begin, end, size = nb, ne, size + 1
+            s0 += 16
+        out[:, q] = begin, end, size
+    return out[0], out[1], out[2].astype(np.int32), [loads, shortcuts]
+
+
+@pytest.mark.parametrize(
+    "depth,m_kind",
+    [(25, "mixed"), (25, "full"), (25, "zero"), (8, "mixed"), (32, "mixed"), (16, "full"), (48, "mixed"), (1, "full")],
+)
+def test_chain_window_kernel_loop_replayed_vs_plain_and_find_window(store, depth, m_kind):
+    ss, _, _, port, text = store
+    rng = np.random.default_rng(depth + 100)
+    pos = rng.integers(0, len(text), 300).astype(np.int64)
+    m = {"mixed": rng.integers(0, depth + 1, len(pos)), "full": np.full(len(pos), depth), "zero": np.zeros(len(pos))}[m_kind].astype(np.int32)
+    win = tprobes._window_bases(torch.from_numpy(text), torch.from_numpy(pos), depth)
+    want = trank4.chain_window_plain(port["blocks"], port["entry_sizes"], port["fixed"], win, torch.from_numpy(m), depth)
+    ref = jprobes.find_window_jit(ss.d, jnp.asarray(text), jnp.asarray(pos), jnp.asarray(m), depth)
+    *got, (loads, shortcuts) = _chain_window_kernel_in_numpy(
+        port["blocks"], port["entry_sizes"].numpy(), port["fixed"].numpy(), win.numpy(), m, depth
+    )
+    for g, w, r in zip(got, want, ref):
+        assert g.dtype == w.numpy().dtype
+        np.testing.assert_array_equal(g, w.numpy())
+        np.testing.assert_array_equal(g, np.asarray(r))
+    if m_kind == "zero":
+        assert loads == 0
+    elif depth >= 8:
+        # the first pushes span the table (two loads a step), later ones sit in one block
+        assert shortcuts > 0 and loads > shortcuts
+
+
+SCATTER_THREADS, SCATTER_ITEMS, SMEM_TILES, COUNTER_STRIDE = 256, 8, 2048, 8  # csrc/rank4_tiled.cu
+
+
+def _bucketing_kernels_in_numpy(tile, n_tiles, seed, smem_tiles=SMEM_TILES):
+    """The histogram -> scan -> scatter kernels of csrc/rank4_tiled.cu on the
+    host.  Blocks run, and atomics are served, in no fixed order: here in
+    orders shuffled by ``seed``.  With at most ``smem_tiles`` tiles a block
+    of the scatter lays its queries out run by run (the runs in the order
+    (thread, j) of the tiles j * THREADS + thread) and takes each run's slots
+    from the tile's cursor at once; with more, the counters lie
+    COUNTER_STRIDE apart and the queries of one warp instruction that share
+    a tile take neighbouring slots from one atomic."""
+    Q = trank4.Q_BLOCK
+    B = len(tile)
+    n_blocks = -(-B // Q) + n_tiles
+    rng = np.random.default_rng(seed)
+    stride = COUNTER_STRIDE if n_tiles > smem_tiles else 1
+    count = np.zeros(n_tiles * stride, np.int32)
+    for t in tile:  # (a)
+        count[t * stride] += 1
+    q_count = count[::stride].copy()
+    q_first = np.zeros(n_tiles, np.int32)
+    blk_first = np.zeros(n_tiles, np.int32)
+    bt = np.full(n_blocks, -1, np.int32)
+    q_carry = b_carry = 0
+    for t in range(n_tiles):  # (b)
+        nb = (q_count[t] + Q - 1) // Q
+        q_first[t], blk_first[t] = q_carry, b_carry
+        bt[b_carry : b_carry + nb] = t
+        q_carry, b_carry = q_carry + q_count[t], b_carry + nb
+    bt[b_carry:] = n_tiles
+    cursor = np.zeros(n_tiles * stride, np.int32)
+    cursor[::stride] = q_first
+    perm = np.full(B, -1, np.int32)
+    chunk = SCATTER_THREADS * SCATTER_ITEMS
+    for blk in rng.permutation(-(-B // chunk)):  # (c)
+        mine = np.arange(blk * chunk, min((blk + 1) * chunk, B))
+        if n_tiles > smem_tiles:
+            for w0 in rng.permutation(np.arange(mine[0], mine[-1] + 1, 32)):  # one warp instruction
+                lanes = np.arange(w0, min(w0 + 32, B))
+                for t in rng.permutation(np.unique(tile[lanes])):
+                    peers = lanes[tile[lanes] == t]  # in lane order
+                    perm[cursor[t * stride] + np.arange(len(peers))] = peers
+                    cursor[t * stride] += len(peers)
+            continue
+        mine = mine[rng.permutation(len(mine))]
+        count = np.zeros(n_tiles, np.int64)
+        r = {}
+        for i in mine:
+            r[i] = count[tile[i]]
+            count[tile[i]] += 1
+        run_start = np.zeros(n_tiles, np.int64)
+        delta = np.zeros(n_tiles, np.int64)
+        start = 0
+        for thread in range(SCATTER_THREADS):
+            for j in range(smem_tiles // SCATTER_THREADS):
+                t = j * SCATTER_THREADS + thread
+                if t < n_tiles and count[t]:
+                    run_start[t], delta[t] = start, cursor[t] - start
+                    cursor[t] += count[t]
+                    start += count[t]
+        assert start == len(mine)
+        staged = np.full(len(mine), -1, np.int64)
+        slot = np.zeros(len(mine), np.int64)
+        for i in mine:
+            at = run_start[tile[i]] + r[i]
+            staged[at], slot[at] = i, delta[tile[i]] + at
+        assert (staged >= 0).all()
+        perm[slot] = staged
+    assert (cursor[::stride] == q_first + q_count).all() and (perm >= 0).all() and (bt >= 0).all()
+    return perm, bt, blk_first, q_first, q_count
+
+
+def _check_bucketing(nw, pos, seed, smem_tiles=SMEM_TILES):
+    words, cum = _structure(nw + 13, nw)
+    tw, tc, tp = _i32(words), torch.from_numpy(cum), torch.from_numpy(pos)
+    tiles = trank4.build_rank4_tiles(tw, tc)
+    n_tiles = tiles.base.shape[0]
+    tile = trank4.tile_of(tiles, tp)
+    got = _bucketing_kernels_in_numpy(tile.numpy(), n_tiles, seed, smem_tiles)
+    want = [x.numpy() for x in trank4.tile_buckets(tile, n_tiles)]
+    for g, w, name in zip(got[1:], want[1:], ("bt", "blk_first", "q_first", "q_count")):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    # the same queries in every bucket, whatever their order inside it
+    key = np.repeat(np.arange(n_tiles), got[4])
+    np.testing.assert_array_equal(got[0][np.lexsort((got[0], key))], want[0][np.lexsort((want[0], key))])
+    ranks = _rank4_tiled_kernel_in_numpy(tiles, tp, got)
+    return ranks, words, cum
+
+
+@pytest.mark.parametrize(
+    "nw,B,kind",
+    [(5, 300, "random"), (1500, 1, "random"), (3000, 4000, "random"), (2047, 2500, "one tile"), (3000, 3000, "empty tile"),
+     (2500, 1100, "sorted"), (3000, 4500, "global counters"), (300000, 5000, "many tiles")],
+)
+def test_rank4_tiled_bucketing_kernels_replayed_in_any_order(nw, B, kind):
+    rng = np.random.default_rng(B + nw)
+    pos = rng.integers(0, 32 * nw + 1, B).astype(np.int64)
+    if kind == "one tile":
+        pos %= 32 * trank4.TILE_W
+    elif kind == "empty tile":  # nothing in the middle tile
+        pos = np.where((pos >> 15) == 1, pos % 1000, pos)
+    elif kind == "sorted":
+        pos.sort()
+    pos[-1] = 32 * nw
+    ranks, words, cum = _check_bucketing(nw, pos, seed=B, smem_tiles=2 if kind == "global counters" else SMEM_TILES)
+    want = np.asarray(jrank4.rank4_xla(jnp.asarray(words), jnp.asarray(cum), jnp.asarray(pos)))
+    np.testing.assert_array_equal(ranks, want)
+
+
+@settings(max_examples=15, deadline=None)
+@given(nw=st.integers(1, 2600), B=st.integers(1, 5000), seed=st.integers(0, 2**31), smem_tiles=st.sampled_from([0, SMEM_TILES]))
+def test_rank4_tiled_bucketing_kernels_any_shape_any_order(nw, B, seed, smem_tiles):
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, 32 * nw + 1, B).astype(np.int64)
+    ranks, words, cum = _check_bucketing(nw, pos, seed, smem_tiles)
+    want = trank4.rank4_plain(_i32(words), torch.from_numpy(cum), torch.from_numpy(pos))
+    np.testing.assert_array_equal(ranks, want.numpy())
