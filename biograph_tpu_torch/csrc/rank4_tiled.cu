@@ -62,6 +62,7 @@ constexpr int CHUNK = THREADS * ITEMS;
 constexpr int TILES_PER_THREAD = SMEM_TILES / THREADS;
 constexpr int COUNTER_STRIDE = 8;  // ints between global counters past SMEM_TILES tiles
 constexpr int SCAN_THREADS = 1024;
+constexpr int SERIAL_FILL = 4;     // a thread maps up to this many blocks of its tile alone
 
 // A position's tile and its place inside the tile.  Positions before the
 // table read as 0; positions past it as its last one (a zero word and the
@@ -167,7 +168,19 @@ tile_scan(const int* __restrict__ count, int* __restrict__ q_count,
             q_first[t] = qf;
             cursor[(long long)t * stride] = qf;
             blk_first[t] = bf;
-            for (int k = 0; k < nb; ++k) bt[bf + k] = t;
+            if (nb <= SERIAL_FILL)
+                for (int k = 0; k < nb; ++k) bt[bf + k] = t;
+        }
+        // a bucket of many blocks (all queries in few tiles): the warp maps
+        // its blocks together, side by side
+        unsigned big = __ballot_sync(0xFFFFFFFFu, t < n_tiles && nb > SERIAL_FILL);
+        while (big) {
+            const int src = __ffs(big) - 1;
+            big &= big - 1;
+            const int bt_t = __shfl_sync(0xFFFFFFFFu, t, src);
+            const int bt_first = __shfl_sync(0xFFFFFFFFu, bf, src);
+            const int bt_n = __shfl_sync(0xFFFFFFFFu, nb, src);
+            for (int k = threadIdx.x & 31; k < bt_n; k += 32) bt[bt_first + k] = bt_t;
         }
     }
     // blocks past the last bucket

@@ -21,8 +21,8 @@ and whatever the seqset's size; the remaining primitives are plain tensor
 code.  ``rank4`` answers positions in the caller's order from the structure
 as stored; ``push4``, the bulk operation, goes through ``rank4_tiled`` and
 the tiled rank table; the find-window chains of ``index/probes.py`` read the
-rank-block table (one 32-byte sector a rank).  ``Seqset.d`` builds both
-tables once, on the device, beside the structure; neither is saved.
+rank-block table (one 32-byte sector a rank).  ``Seqset.d`` builds each
+table once, on the device, when a query first reads it; neither is saved.
 
 Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the 32-bit
 words bit-reinterpreted; ``save`` writes them as ``uint32`` so the artifact
@@ -101,8 +101,6 @@ class Seqset:
             shared=self.shared,
             pop_sel=self.pop_sel,
             n_entries=self.n_entries,
-            rank4_tiles=rank4_ops.build_rank4_tiles(prev_words, prev_cum),
-            rank_blocks=rank4_ops.build_rank_blocks(prev_words, prev_cum),
         )
 
     # ---------------- convenience (small queries) -------------
@@ -165,12 +163,24 @@ class _SeqsetDevice:
     shared: torch.Tensor
     pop_sel: torch.Tensor
     n_entries: int
-    rank4_tiles: rank4_ops.Rank4Tiles  # what rank4_tiled (push4) reads
-    rank_blocks: torch.Tensor  # int32 [4, nblk, 8]: what chain_window reads
 
     @property
     def device(self) -> torch.device:
         return self.prev_words.device
+
+    # Two more forms of the rank structure, each built on the device by the
+    # first query that reads it, so that a caller who never pushes or probes
+    # holds neither.
+
+    @cached_property
+    def rank4_tiles(self) -> rank4_ops.Rank4Tiles:
+        """What rank4_tiled (push4) reads."""
+        return rank4_ops.build_rank4_tiles(self.prev_words, self.prev_cum)
+
+    @cached_property
+    def rank_blocks(self) -> torch.Tensor:
+        """int32 [4, nblk, 8]: what chain_window reads."""
+        return rank4_ops.build_rank_blocks(self.prev_words, self.prev_cum)
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)

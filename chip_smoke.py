@@ -55,6 +55,10 @@ BIG_NW, BIG_QUERIES = 1 << 24, 1 << 22
 # outside the tensor cores, taken as the rate of the 32-bit integer lanes.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# Integer operations that one push_front step of one lane needs, whatever the
+# rank layout: two ranks (word index, mask, popcount, the adds) plus the
+# window base, the gate, the size compare and the kick.
+CHAIN_OPS_PER_STEP = 48
 
 WRAPPERS = {
     "rank4": rank4_ops.rank4,
@@ -431,21 +435,31 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe
     # chain_window as a probe_exact round calls it, twice: every lane at
     # full depth, and the per-lane lengths the bisection's third round tests.
     # The byte bound counts each input once (rows, lengths, the block table,
-    # the sizes touched) and the outputs; about 60 integer operations a step.
+    # the sizes touched) and the outputs.  The operation bound counts the
+    # steps this run's data needs (every push of a lane whose range was not
+    # empty, the one that empties it included: the sum of the sizes that
+    # come back) at CHAIN_OPS_PER_STEP integer operations: what a push_front
+    # step needs by its definition, whatever the layout.
     # Beside it: the sectors this run's steps ask for, which is what the
     # kernel's time follows while everything sits in L2.
     win = probes._window_bases(probe_text, probe_pos, DEPTH)
     P = probe_pos.shape[0]
+    g = torch.Generator(device=d.device).manual_seed(SEED + 2)
+    check_rank_blocks("main path", d.prev_words, d.prev_cum, d.rank_blocks,
+                      torch.randint(0, 32 * nw + 1, (1 << 20,), device=d.device, generator=g))
     for case, m in (("m == depth", probe_m), ("mixed m: round 3 of probe_exact", probe_m_mixed)):
         args = (d.rank_blocks, d.entry_sizes, d.fixed, win, m, DEPTH)
         steps, sectors, stored, replayed = chain_sectors(d, win, m, DEPTH)
-        require_equal(f"chain_window replay, {case}", rank4_ops.chain_window(*args), replayed)
+        got = rank4_ops.chain_window(*args)
+        require_equal(f"chain_window replay, {case}", got, replayed)
+        if steps != int(got[2].sum()):
+            raise AssertionError(f"chain_window {case}: the replay's steps are not the pushes the kernel counted")
         row(
             "chain_window",
             lambda: rank4_ops.chain_window(*args),
             lambda: rank4_ops.chain_window_plain(*args),
             P * DEPTH + P * 4 + P * 20 + blocks_bytes + min(steps * 4, n * 4) + 40,
-            steps * 60,
+            steps * CHAIN_OPS_PER_STEP,
             plain_reps=2,
         )
         ms = rows[-1]["ms"]
@@ -515,6 +529,11 @@ def rank_past_l2(dev, stall, breakdown=False):
     check_buckets("past L2, sorted", tiles, pos_sorted)
     half = BIG_QUERIES // 2
     check_buckets("past L2, every other sorted", tiles, torch.stack([pos_sorted[:half], pos[:half]], dim=1).reshape(-1))
+    # few tiles, thousands of blocks each: the block map filled by whole warps
+    pos_one_tile = pos % (32 * rank4_ops.TILE_W)
+    for name, sel in (("one tile", pos_one_tile), ("three tiles", pos % (3 * 32 * rank4_ops.TILE_W))):
+        check_buckets(f"past L2, {name}", tiles, sel)
+        require_equal(f"rank4_tiled past L2, {name}", rank4_ops.rank4_tiled(tiles, sel), rank4_ops.rank4_plain(words, cum, sel))
     split = {
         "rank4_tiled_kernels_us": kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos)),
         "rank4_tiled_sorted_positions_kernels_us": kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos_sorted)),
@@ -532,6 +551,8 @@ def rank_past_l2(dev, stall, breakdown=False):
         "rank4_tiled_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos), 10, stall=stall),
         "rank4_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4(words, cum, pos_sorted), 10, stall=stall),
         "rank4_tiled_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos_sorted), 10, stall=stall),
+        "rank4_tiled_one_tile_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos_one_tile), 10, stall=stall),
+        "rank4_tiled_one_tile_buckets_ms": event_ms(lambda: rank4_ops.tile_buckets_kernel(tiles, pos_one_tile), 10, stall=stall),
         "plain_ms": event_ms(lambda: rank4_ops.rank4_plain(words, cum, pos), 3, warm=1, stall=stall),
     }
 
@@ -562,6 +583,9 @@ def main_path(dev, genome, codes, lengths, depth=DEPTH):
             raise AssertionError(f"seqset field {name} changed across save/load")
     del ss, rm
     d = ss2.d
+    # the two derived rank tables, built by the first query that reads them:
+    # built here so that no stage below carries their cost
+    _, stats["rank_tables_s"] = timed(lambda: (d.rank4_tiles, d.rank_blocks))
 
     codes_dev = torch.from_numpy(codes).to(dev)
     lens_dev = torch.from_numpy(lengths).to(dev)
