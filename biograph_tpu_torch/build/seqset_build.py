@@ -120,14 +120,14 @@ def _entries_from_suffixes(words: torch.Tensor, lens: torch.Tensor):
 def _rank_structure_dev(first_base: torch.Tensor, lb: torch.Tensor, n: int, nw: int):
     """prev[b] rank bitvectors: scatter each entry's pop lower-bound bit
     into its first-base row, then the exclusive per-word popcount prefix
-    (kernel K4, one call per base row).  Also returns the stat vector
+    (kernel K4, the four base rows in one launch).  Also returns the stat vector
     [counts(4), select_monotone_ok] so the caller needs one fetch."""
     flat = first_base * nw + (lb >> 5)
     # bits are distinct within a word, so adding them is OR-ing them
     words = torch.zeros(4 * nw, dtype=torch.int64, device=lb.device)
     words.index_add_(0, flat, torch.ones_like(lb) << (lb & 31))
     words = dna.u32_to_i32(words & dna.MASK32).reshape(4, nw).contiguous()
-    cum = torch.stack([rank_cum(words[b]) for b in range(4)]).to(torch.int64)
+    cum = rank_cum(words).to(torch.int64)
     counts = torch.bincount(first_base, minlength=4)
     if n > 1:
         same_base = first_base[1:] == first_base[:-1]

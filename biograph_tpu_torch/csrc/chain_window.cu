@@ -21,7 +21,7 @@
 // What the design does about it: the kernel reads the rank structure only
 // through the rank-block table (ops/rank4.py, build_rank_blocks).  A block
 // is one aligned 32-byte sector: an int64 count of the set bits before the
-// block, then six 32-bit words (192 entries); base b's blocks lie together.
+// block, then six 32-bit words (192 entries); the layout is rank_blocks.cuh's.
 // rank_b(p) needs block p / 192 and nothing else, so a step asks for one
 // sector for `begin`, one for `end` and none when both fall in one block
 // (after a dozen pushes the range is narrow and they nearly always do), and
@@ -36,21 +36,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-constexpr int BLOCK_WORDS = 6;  // 32-bit words in a rank block
-constexpr int THREADS = 128;
+#include "rank_blocks.cuh"
 
-// Set bits below bit r (0 <= r < 192) of the block (a, c), plus its count.
-// a = {count, words 0-1}, c = {words 2-3, words 4-5}, little-endian pairs.
-__device__ __forceinline__ long long rank_in_block(ulonglong2 a, ulonglong2 c,
-                                                   uint32_t r) {
-    const unsigned long long all = ~0ull;
-    unsigned long long m0 = r >= 64 ? all : (1ull << r) - 1ull;
-    unsigned long long m1 =
-        r >= 128 ? all : (r > 64 ? (1ull << (r - 64)) - 1ull : 0ull);
-    unsigned long long m2 = r > 128 ? (1ull << (r - 128)) - 1ull : 0ull;
-    return (long long)a.x + __popcll(a.y & m0) + __popcll(c.x & m1) +
-           __popcll(c.y & m2);
-}
+constexpr int THREADS = 128;
 
 template <bool VEC16>
 __global__ void __launch_bounds__(THREADS)
@@ -95,25 +83,17 @@ chain_window_kernel(const ulonglong2* __restrict__ blocks,
                 break;
             }
             const int b = (chunk[i >> 2] >> (8 * (i & 3))) & 3;
-            long long pb = begin < 0 ? 0 : begin;  // never read before the table
-            long long pe = end < 0 ? 0 : end;
-            long long wb = pb >> 5, we = pe >> 5;
-            if (wb > last_word) wb = last_word;  // past the table: the totals
-            if (we > last_word) we = last_word;
-            const uint32_t kb = (uint32_t)wb / BLOCK_WORDS;
-            const uint32_t ke = (uint32_t)we / BLOCK_WORDS;
-            const ulonglong2* base_b = blocks + 2 * ((long long)b * nblk);
-            const ulonglong2 ab = base_b[2 * (long long)kb];
-            const ulonglong2 cb = base_b[2 * (long long)kb + 1];
+            uint32_t kb, ke, rb, re;
+            locate_in_blocks(begin, last_word, &kb, &rb);
+            locate_in_blocks(end, last_word, &ke, &re);
+            const ulonglong2* at_b = block_at(blocks, b, kb);
+            const ulonglong2 ab = at_b[0], cb = at_b[1];
             ulonglong2 ae = ab, ce = cb;
             if (ke != kb) {  // otherwise both ends share the sector just read
-                ae = base_b[2 * (long long)ke];
-                ce = base_b[2 * (long long)ke + 1];
+                const ulonglong2* at_e = block_at(blocks, b, ke);
+                ae = at_e[0];
+                ce = at_e[1];
             }
-            const uint32_t rb =
-                ((uint32_t)wb - kb * BLOCK_WORDS) * 32u + (uint32_t)(pb & 31);
-            const uint32_t re =
-                ((uint32_t)we - ke * BLOCK_WORDS) * 32u + (uint32_t)(pe & 31);
             const long long fb = s_fixed[b];
             long long nb = fb + rank_in_block(ab, cb, rb);
             const long long ne = fb + rank_in_block(ae, ce, re);

@@ -15,18 +15,20 @@ Counterpart of ``biograph_tpu/index/seqset.py``.  Semantics:
     i-1.
 
 Everything queryable is a flat tensor on one device; all query methods are
-batched.  ``rank4``, ``rank4_tiled`` and ``sizes_at`` run on the CUDA kernels
-of ``ops/rank4.py`` when the tensors are on the card, whatever the batch size
-and whatever the seqset's size; the remaining primitives are plain tensor
-code.  ``rank4`` answers positions in the caller's order from the structure
-as stored; ``push4``, the bulk operation, goes through ``rank4_tiled`` and
-the tiled rank table; the find-window chains of ``index/probes.py`` read the
-rank-block table (one 32-byte sector a rank).  ``Seqset.d`` builds each
-table once, on the device, when a query first reads it; neither is saved.
+batched.  The engine (``Seqset.d``) holds the rank structure in one form, the
+rank-block table of ``ops/rank4.py`` (one 32-byte sector a rank), built once
+from the stored pair and never saved.  ``rank4`` and ``push4`` (the rank4
+kernel), ``rank``, ``push_front``, ``find`` and ``find_existing`` (the rank
+kernel, both ends of a range in one launch), ``sizes_at`` (gather_sizes) and
+the find-window chains of ``index/probes.py`` (chain_window) all read that
+table when the tensors are on the card, whatever the batch size and whatever
+the seqset's size; the remaining primitives are plain tensor code.
 
 Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the 32-bit
 words bit-reinterpreted; ``save`` writes them as ``uint32`` so the artifact
-is byte-compatible with the JAX package's.
+is byte-compatible with the JAX package's.  ``prev_words`` and ``prev_cum``
+are kept for ``save`` and for building tables; after ``load`` they stay on
+the host.
 
 Not ported yet (they need ``ops/ltsearch.py``): ``push_front_drop``,
 ``pop_front_ranges``, ``truncate_ranges``, ``trunc_gather``.
@@ -77,7 +79,9 @@ class Seqset:
 
     @property
     def device(self) -> torch.device:
-        return self.prev_words.device
+        """Where the queries run: the device of every tensor but, after
+        ``load``, the stored rank pair, which then stays on the host."""
+        return self.entry_sizes.device
 
     def to(self, device="cuda") -> "Seqset":
         """A seqset with every tensor on ``device``."""
@@ -89,14 +93,16 @@ class Seqset:
 
     @cached_property
     def d(self) -> "_SeqsetDevice":
-        """The batched query engine over this seqset's tensors, on the
-        device they lie on (entry points put them on CUDA by default)."""
-        prev_words = self.prev_words.contiguous()
-        prev_cum = self.prev_cum.contiguous()
+        """The batched query engine over this seqset, on ``self.device``
+        (entry points put it on CUDA by default).  It reads the rank
+        structure only through the rank-block table, built here, once, from
+        the stored pair where that lies, and then moved to the device."""
+        blocks = rank4_ops.build_rank_blocks(
+            self.prev_words.contiguous(), self.prev_cum.contiguous()
+        )
         return _SeqsetDevice(
             fixed=self.fixed,
-            prev_words=prev_words,
-            prev_cum=prev_cum,
+            rank_blocks=blocks.to(self.device),
             entry_sizes=self.entry_sizes.contiguous(),
             shared=self.shared,
             pop_sel=self.pop_sel,
@@ -140,6 +146,10 @@ class Seqset:
 
     @staticmethod
     def load(path: str, device="cuda") -> "Seqset":
+        """The saved seqset with its queryable tensors on ``device``.  The
+        stored rank pair (``prev_words``, ``prev_cum``) stays on the host: no
+        query reads it, ``save`` writes it, and ``d`` builds the rank-block
+        table from it."""
         dev = resolve_device(device)
         r = container.ArtifactReader(path, "seqset", mmap=False)
         from biograph_tpu_torch.convert import seqset_from_numpy
@@ -147,18 +157,21 @@ class Seqset:
         arrays = {name: r.array(name) for name in _TENSOR_FIELDS}
         arrays["n_entries"] = r.scalar("n_entries")
         arrays["max_entry_len"] = r.scalar("max_entry_len")
-        ss = seqset_from_numpy(arrays, dev)
+        ss = seqset_from_numpy(arrays, "cpu")
+        for name in _TENSOR_FIELDS:
+            if name not in ("prev_words", "prev_cum"):
+                setattr(ss, name, getattr(ss, name).to(dev))
         ss.uuid = r.uuid
         return ss
 
 
 @dataclass(frozen=True)
 class _SeqsetDevice:
-    """Batched query engine over the seqset's tensors."""
+    """Batched query engine over the seqset's tensors.  The rank structure
+    is here in one form only, the rank-block table."""
 
     fixed: torch.Tensor
-    prev_words: torch.Tensor
-    prev_cum: torch.Tensor
+    rank_blocks: torch.Tensor  # int32 [nblk, 4, 8] (``build_rank_blocks``)
     entry_sizes: torch.Tensor
     shared: torch.Tensor
     pop_sel: torch.Tensor
@@ -166,21 +179,7 @@ class _SeqsetDevice:
 
     @property
     def device(self) -> torch.device:
-        return self.prev_words.device
-
-    # Two more forms of the rank structure, each built on the device by the
-    # first query that reads it, so that a caller who never pushes or probes
-    # holds neither.
-
-    @cached_property
-    def rank4_tiles(self) -> rank4_ops.Rank4Tiles:
-        """What rank4_tiled (push4) reads."""
-        return rank4_ops.build_rank4_tiles(self.prev_words, self.prev_cum)
-
-    @cached_property
-    def rank_blocks(self) -> torch.Tensor:
-        """int32 [4, nblk, 8]: what chain_window reads."""
-        return rank4_ops.build_rank_blocks(self.prev_words, self.prev_cum)
+        return self.entry_sizes.device
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -188,17 +187,18 @@ class _SeqsetDevice:
     # -- primitive ops (all batched) --
 
     def rank(self, b, pos) -> torch.Tensor:
-        """rank of prev[base b] at positions pos; b and pos same shape."""
-        return rank4_ops.rank_plain(
-            self.prev_words, self.prev_cum, self._t(b), self._t(pos)
+        """rank of prev[base b] at positions pos; b and pos same shape.
+        Through the rank kernel on the card."""
+        return rank4_ops.rank(
+            self.rank_blocks,
+            self._t(b, torch.int64).contiguous(),
+            self._t(pos, torch.int64).contiguous(),
         )
 
     def entry_has_front(self, entry, b) -> torch.Tensor:
-        entry = self._t(entry, torch.int64)
-        nw = self.prev_words.shape[1]
-        flat = self._t(b, torch.int64) * nw + (entry >> 5)
-        word = dna.i32_to_u32(self.prev_words.reshape(-1)[flat])
-        return ((word >> (entry & 31)) & 1).to(torch.bool)
+        return rank4_ops.has_bit_blocks(
+            self.rank_blocks, self._t(b, torch.int64), self._t(entry, torch.int64)
+        )
 
     def entry_push_front(self, entry, b) -> torch.Tensor:
         b = self._t(b, torch.int64)
@@ -215,11 +215,18 @@ class _SeqsetDevice:
 
     def push_front(self, r: SeqsetRanges, b) -> SeqsetRanges:
         """Batched push_front.  Lanes with invalid input ranges come back
-        as (begin, begin, size)."""
+        as (begin, begin, size).  Both range ends are ranked in one launch
+        of the rank kernel on the card."""
+
+        def rank_ends(b, begin, end):
+            return rank4_ops.rank(
+                self.rank_blocks, b.contiguous(), begin.contiguous(), end.contiguous()
+            )
+
         return SeqsetRanges(
-            *rank4_ops.push_front_plain(
-                self.prev_words, self.prev_cum, self.entry_sizes, self.fixed,
-                r.begin, r.end, r.size, self._t(b),
+            *rank4_ops.push_front_over(
+                rank_ends, self.entry_sizes, self.fixed, r.begin, r.end, r.size,
+                self._t(b, torch.int64),
             )
         )
 
@@ -233,23 +240,16 @@ class _SeqsetDevice:
         """All-4-bases rank at each position: int32 [B, 4], through the
         rank4 kernel on the card."""
         pos = self._t(pos, torch.int64).contiguous()
-        return rank4_ops.rank4(self.prev_words, self.prev_cum, pos)
-
-    def rank4_tiled(self, pos) -> torch.Tensor:
-        """The same int32 [B, 4] as ``rank4``, through the rank4_tiled
-        kernel and the tiled rank table on the card: the queries are sorted
-        by tile first, which is what a bulk caller wants."""
-        pos = self._t(pos, torch.int64).contiguous()
-        return rank4_ops.rank4_tiled(self.rank4_tiles, pos)
+        return rank4_ops.rank4(self.rank_blocks, pos)
 
     def push4(self, r: SeqsetRanges):
         """Children of each range for ALL four pushed bases at once.
 
         Returns (begin4, end4) int64 [B, 4] indexed by the pushed base —
-        column b equals push_front(r, b).(begin, end).  One stacked
-        rank4_tiled over both range ends plus one sizes gather."""
+        column b equals push_front(r, b).(begin, end).  One stacked rank4
+        over both range ends plus one sizes gather."""
         B = r.begin.shape[0]
-        r4 = self.rank4_tiled(torch.cat([r.begin, r.end])).to(torch.int64)
+        r4 = self.rank4(torch.cat([r.begin, r.end])).to(torch.int64)
         nb = self.fixed[None, :4] + r4[:B]
         ne = self.fixed[None, :4] + r4[B:]
         new_size = (r.size + 1)[:, None]

@@ -22,6 +22,7 @@ the slowest single build rather than their sum.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -66,8 +67,13 @@ def source_path(name: str) -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Named by the source, the headers beside it and the flags, so that a
+    change to any of them builds anew."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in (source_path(name), *(os.path.join(CSRC, h) for h in headers)):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -131,6 +137,16 @@ def function(kernel: str, symbol: str, argtypes):
         fn.restype = ctypes.c_int
         _functions[symbol] = fn
     return fn
+
+
+@functools.cache
+def check_constants(kernel: str, constants: tuple) -> None:
+    """The layout constants a kernel was compiled with are its wrapper's:
+    ``constants`` is pairs of (C function returning the constant, the
+    wrapper's value), asked of the library once, when it is first loaded."""
+    for symbol, value in constants:
+        if function(kernel, symbol, [])() != value:
+            raise RuntimeError(f"{kernel}: {symbol} differs from the wrapper's")
 
 
 def launch(kernel: str, symbol: str, argtypes, device, *args):

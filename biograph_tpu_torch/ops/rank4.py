@@ -1,9 +1,9 @@
-"""The seqset's rank kernels: rank4, gather_sizes, chain_window, rank4_tiled
-(K1-K3, K5).
+"""The seqset's rank kernels: rank4 and rank, gather_sizes, chain_window,
+rank4_tiled (K1-K3, K5).
 
 They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
 
-  * ``rank4``        <- ``rank4_pallas`` (``_rank4_kernel``)
+  * ``rank4``, ``rank`` <- ``rank4_pallas`` (``_rank4_kernel``)
   * ``rank4_tiled``  <- ``rank4_hbm_pallas`` (``_rank4_hbm_kernel``), over
     ``build_rank4_tiles`` <- ``build_rank4_hbm_table``
   * ``gather_sizes`` <- ``gather_bytes_pallas`` (``_gather_bytes_kernel``)
@@ -13,36 +13,33 @@ They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
 The TPU kernels turn the gathers into one-hot matrix products over
 byte-limb tables, because random gathers are what that machine lacks; that
 brought an entry cap and a 24-bit count cap.  A GPU gathers directly, so
-these kernels read the rank structure as the seqset stores it and carry no
-table and no cap:
+these kernels carry no cap:
 
     rank_b(pos) = cum[b, pos>>5] + popcount(words[b, pos>>5] & low(pos&31))
 
-All are bound by bytes gathered at random (a 32-byte sector per 4- or
-8-byte value), not by arithmetic.  The design is one thread per query or
-lane with every load independent (rank4, gather_sizes) or the whole
-dependent chain kept in registers (chain_window); the rank structure of a
-seqset is a few MB and is served from L2 after first touch.
+All are bound by 32-byte sectors gathered at random, not by arithmetic, so
+the layout they read decides their time.  The query engine's one form of the
+rank structure is the rank-block table (``build_rank_blocks``): 32-byte
+blocks of one int64 count and six words, one aligned sector a rank, the four
+bases' blocks of a position side by side in one aligned 128-byte line.
+``rank4`` (four lanes a query, one a base), ``rank`` (one base a query, both
+ends of a range in one launch) and ``chain_window`` (the whole dependent
+chain of a lane in registers, no second sector when both range ends share a
+block) read nothing else of the structure.
 
-``chain_window`` reads the rank structure through a third form, the
-rank-block table (``build_rank_blocks``): per base, 32-byte blocks of one
-int64 count and six words, so that one rank costs one aligned sector
-instead of two, and none when both ends of a range fall in one block.
+``rank4_tiled`` computes the same [B, 4] ranks as ``rank4`` from a table of
+its own (``Rank4Tiles``: a word column's four words and four tile-relative
+counts side by side, 24 bytes), its queries bucketed by tile (a histogram, a
+scan and a scatter, kernels of the same call) so that a block reads its tile
+once, coalesced, into shared memory.  It is the counterpart of the TPU's
+tiled kernel; the table is built by whoever calls it, not by the seqset.
 
-``rank4`` and ``rank4_tiled`` compute the same [B, 4] ranks and differ in
-what they read.  ``rank4`` gathers from the structure as stored, eight
-sectors a query, in the caller's order: the form for positions in any order
-and any number.  ``rank4_tiled`` is the bulk form under ``push4``: its table
-(``Rank4Tiles``) keeps a word column's four words and four tile-relative
-counts side by side (24 bytes, two sectors, half the stored structure's
-bytes), and its queries are bucketed by tile (a histogram, a scan and a
-scatter, kernels of the same call) so that a block reads its tile once,
-coalesced, into shared memory.  Neither has a size gate.
-
-Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the
-words' bits reinterpreted; ``prev_cum`` is int64 [4, nw].  The kernels take
-``__popc`` of the 32 bits; the plain versions widen to int64, mask with
-``& 0xFFFFFFFF`` and count by SWAR.
+The structure as stored (``prev_words`` ``torch.int32`` [4, nw] holding the
+words' bits reinterpreted, ``prev_cum`` int64 [4, nw]) is what ``save``
+writes and what the tables are built from.  ``rank_plain``, ``rank4_plain``
+and ``push_front_plain`` over it are the oracles the table forms are held
+against; no query reads it.  The kernels take ``__popc`` of the bits; the
+plain versions widen to int64, mask with ``& 0xFFFFFFFF`` and count by SWAR.
 
 Each wrapper takes its plain version only for CPU tensors; CUDA tensors
 launch the kernel or raise.  ``<wrapper>.launches`` counts launches.
@@ -51,7 +48,6 @@ launch the kernel or raise.  ``<wrapper>.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -103,25 +99,26 @@ BLOCK_WORDS = 6  # 32-bit words in a block of the rank-block table
 
 def build_rank_blocks(prev_words, prev_cum) -> torch.Tensor:
     """The rank-block table of a rank structure, on the structure's device:
-    int32 [4, nblk, 8] with nblk = nw // 6 + 1.
+    int32 [nblk, 4, 8] with nblk = nw // 6 + 1.
 
-    Block k of base b is one aligned 32-byte sector: the int64 count of the
-    set bits before word 6k (in the first two int32, little-endian), then
-    words 6k .. 6k+5.  Words past the structure are zero and the blocks
-    there carry the totals, so a position equal to 32*nw is answered like
-    any other; the table always holds at least one such word."""
+    Block k of base b, ``blocks[k, b]``, is one aligned 32-byte sector: the
+    int64 count of the set bits before word 6k (in the first two int32,
+    little-endian), then words 6k .. 6k+5; the four bases' blocks of one k are
+    one aligned 128-byte line.  Words past the structure are zero and the
+    blocks there carry the totals, so a position equal to 32*nw is answered
+    like any other; the table always holds at least one such word."""
     _check_structure("build_rank_blocks", prev_words, prev_cum)
     nw = prev_words.shape[1]
     nblk = nw // BLOCK_WORDS + 1
     if nblk * BLOCK_WORDS >= 1 << 32:
         raise ValueError("build_rank_blocks: word indices must fit 32 bits")
     totals = prev_cum[:, -1] + popcount32(i32_to_u32(prev_words[:, -1]))
-    blocks = torch.zeros((4, nblk, 8), dtype=torch.int32, device=prev_words.device)
+    blocks = torch.zeros((nblk, 4, 8), dtype=torch.int32, device=prev_words.device)
     padded = blocks.new_zeros((4, nblk * BLOCK_WORDS))
     padded[:, :nw] = prev_words
-    blocks[:, :, 2:] = padded.view(4, nblk, BLOCK_WORDS)
+    blocks[:, :, 2:] = padded.view(4, nblk, BLOCK_WORDS).transpose(0, 1)
     counts = torch.cat([prev_cum, totals[:, None]], dim=1)[:, ::BLOCK_WORDS]
-    blocks.view(torch.int64)[:, :, 0] = counts
+    blocks.view(torch.int64)[:, :, 0] = counts.T
     return blocks
 
 
@@ -129,29 +126,50 @@ def _check_blocks(name, blocks):
     if (
         blocks.dtype != torch.int32
         or blocks.dim() != 3
-        or blocks.shape[0] != 4
-        or blocks.shape[1] == 0
+        or blocks.shape[0] == 0
+        or blocks.shape[1] != 4
         or blocks.shape[2] != 8
     ):
-        raise TypeError(f"{name}: the rank-block table must be int32 [4, nblk>0, 8]")
+        raise TypeError(f"{name}: the rank-block table must be int32 [nblk>0, 4, 8]")
+
+
+def _locate(blocks, b, pos):
+    """(sector of base b's block, word inside the block, pos as int64
+    clamped to >= 0) for rank positions pos; b and pos broadcast."""
+    pos = pos.to(torch.int64).clamp(min=0)
+    word = (pos >> 5).clamp(max=blocks.shape[0] * BLOCK_WORDS - 1)
+    blk = word // BLOCK_WORDS
+    return blk * 4 + b.to(torch.int64), word - blk * BLOCK_WORDS, pos
 
 
 def rank_blocks_plain(blocks, b, pos) -> torch.Tensor:
-    """rank of prev[base b] at positions pos (b and pos the same shape) from
-    the rank-block table: int64, the same values as ``rank_plain`` on the
-    structure the table was built from."""
-    nblk = blocks.shape[1]
-    pos = pos.to(torch.int64).clamp(min=0)
-    word = (pos >> 5).clamp(max=nblk * BLOCK_WORDS - 1)
-    blk = word // BLOCK_WORDS
-    flat = b.to(torch.int64) * nblk + blk
-    count = blocks.view(torch.int64).reshape(-1, 4)[flat, 0]
-    words = i32_to_u32(blocks.reshape(-1, 8)[flat][..., 2:])  # [..., 6]
-    at = (word - blk * BLOCK_WORDS)[..., None]
+    """Plain version of ``rank``: the rank of prev[base b] at positions pos
+    (b and pos broadcast against each other) from the rank-block table:
+    int64, the same values as ``rank_plain`` on the structure the table was
+    built from."""
+    sector, at, pos = _locate(blocks, b, pos)
+    count = blocks.view(torch.int64).reshape(-1, 4)[sector, 0]
+    words = i32_to_u32(blocks.reshape(-1, 8)[sector][..., 2:])  # [..., 6]
+    at = at[..., None]
     j = torch.arange(BLOCK_WORDS, device=blocks.device)
     partial = low_bits_mask(pos & 31)[..., None]
     mask = torch.where(j < at, MASK32, torch.where(j == at, partial, 0))
     return count + popcount32(words & mask).sum(dim=-1)
+
+
+def rank4_blocks_plain(blocks, pos) -> torch.Tensor:
+    """Plain version of ``rank4``: int32 [B, 4] from the rank-block table,
+    the same values as ``rank4_plain`` on the structure it was built from."""
+    b = torch.arange(4, device=pos.device)
+    return rank_blocks_plain(blocks, b[None, :], pos[:, None]).to(torch.int32)
+
+
+def has_bit_blocks(blocks, b, pos) -> torch.Tensor:
+    """Bit pos of prev[base b], read from its block's word slot: bool of the
+    broadcast shape.  pos in [0, 32*nw)."""
+    sector, at, pos = _locate(blocks, b, pos)
+    word = i32_to_u32(blocks.reshape(-1, 8)[sector, 2 + at])
+    return ((word >> (pos & 31)) & 1).to(torch.bool)
 
 
 TILE_W = 1024  # word columns per tile of the tiled rank table
@@ -242,13 +260,15 @@ def gather_sizes_plain(entry_sizes, idx) -> torch.Tensor:
     return entry_sizes[idx.to(torch.int64)]
 
 
-def _push_front(rank, entry_sizes, fixed, begin, end, size, b):
-    """One batched push_front step over ``rank(b, pos)``; lanes with
-    begin >= end come back as (begin, begin, size)."""
+def push_front_over(rank_ends, entry_sizes, fixed, begin, end, size, b):
+    """One batched push_front step over ``rank_ends(b, begin, end)``, which
+    ranks both ends of every range; lanes with begin >= end come back as
+    (begin, begin, size)."""
     n = entry_sizes.shape[0]
     fixed_b = fixed[b.to(torch.int64)]
-    nb = fixed_b + rank(b, begin)
-    ne = fixed_b + rank(b, end)
+    rank_begin, rank_end = rank_ends(b, begin, end)
+    nb = fixed_b + rank_begin
+    ne = fixed_b + rank_end
     new_size = size + 1
     # kick begin forward if the first entry is too short to hold b+S
     sizes_nb = entry_sizes[nb.clamp(0, n - 1)]
@@ -265,10 +285,12 @@ def _push_front(rank, entry_sizes, fixed, begin, end, size, b):
 def push_front_plain(prev_words, prev_cum, entry_sizes, fixed, begin, end,
                      size, b):
     """One batched push_front step against the structure as stored."""
-    return _push_front(
-        lambda b, pos: rank_plain(prev_words, prev_cum, b, pos),
-        entry_sizes, fixed, begin, end, size, b,
-    )
+
+    def rank_ends(b, begin, end):
+        return (rank_plain(prev_words, prev_cum, b, begin),
+                rank_plain(prev_words, prev_cum, b, end))
+
+    return push_front_over(rank_ends, entry_sizes, fixed, begin, end, size, b)
 
 
 def chain_window_plain(blocks, entry_sizes, fixed, win, m, depth: int):
@@ -281,11 +303,15 @@ def chain_window_plain(blocks, entry_sizes, fixed, win, m, depth: int):
     begin = torch.zeros(P, dtype=torch.int64, device=dev)
     end = torch.full((P,), n, dtype=torch.int64, device=dev)
     size = torch.zeros(P, dtype=torch.int32, device=dev)
+
+    def rank_ends(b, begin, end):
+        return rank_blocks_plain(blocks, b, begin), rank_blocks_plain(blocks, b, end)
+
     for s in range(depth):
         started = s >= (depth - m)
-        nb, ne, ns = _push_front(
-            lambda b, pos: rank_blocks_plain(blocks, b, pos),
-            entry_sizes, fixed, begin, end, size, win[:, s].to(torch.int64),
+        nb, ne, ns = push_front_over(
+            rank_ends, entry_sizes, fixed, begin, end, size,
+            win[:, s].to(torch.int64),
         )
         begin = torch.where(started, nb, begin)
         end = torch.where(started, ne, end)
@@ -324,31 +350,65 @@ def _check_cuda(name, ref, *tensors):
             )
 
 
-def rank4(prev_words, prev_cum, pos) -> torch.Tensor:
+def rank4(blocks, pos) -> torch.Tensor:
     """All-four-bases rank at each position: int32 [B, 4].
 
-    prev_words int32 [4, nw]; prev_cum int64 [4, nw]; pos int64 [B] in
-    [0, 32*nw]."""
-    _check_structure("rank4", prev_words, prev_cum)
+    blocks int32 [nblk, 4, 8], the rank-block table (``build_rank_blocks``);
+    pos int64 [B]: a negative position reads as 0, one past the structure
+    as 32*nw."""
+    _check_blocks("rank4", blocks)
     if pos.dtype != torch.int64 or pos.dim() != 1:
         raise TypeError("rank4: pos must be a 1-D int64 tensor")
-    if pos.device.type == "cpu":
-        return rank4_plain(prev_words, prev_cum, pos)
-    _check_cuda("rank4", pos, prev_words, prev_cum)
+    if pos.device.type == "cpu" and blocks.device.type == "cpu":
+        return rank4_blocks_plain(blocks, pos)
+    _check_cuda("rank4", pos, blocks)
+    _build.check_constants("rank4", _KERNEL_CONSTANTS["rank4"])
     B = pos.shape[0]
     out = torch.empty((B, 4), dtype=torch.int32, device=pos.device)
     if B == 0:
         return out
     _build.launch(
-        "rank4", "bgt_rank4", [_VP] * 4 + [_LL, _LL], pos.device,
-        _build.ptr(prev_words), _build.ptr(prev_cum), _build.ptr(pos),
-        _build.ptr(out), prev_words.shape[1], B,
+        "rank4", "bgt_rank4", [_VP] * 3 + [_LL, _LL], pos.device,
+        _build.ptr(blocks), _build.ptr(pos), _build.ptr(out), blocks.shape[0], B,
     )
     rank4.launches += 1
     return out
 
 
 rank4.launches = 0
+
+
+def rank(blocks, b, pos, pos_end=None):
+    """The rank of prev[base b] at positions pos, one base a query: int64 of
+    pos's shape, from the same table and the same source as ``rank4``.  With
+    ``pos_end`` both ends of each range are ranked in the one launch and the
+    pair (rank at pos, rank at pos_end) comes back.
+
+    blocks int32 [nblk, 4, 8]; b int64 in [0, 4) and pos, pos_end int64, all
+    of one shape."""
+    _check_blocks("rank", blocks)
+    ends = (pos,) if pos_end is None else (pos, pos_end)
+    for t in (b, *ends):
+        if t.dtype != torch.int64 or t.shape != b.shape:
+            raise TypeError("rank: b and the positions must be int64 tensors of one shape")
+    if b.device.type == "cpu" and blocks.device.type == "cpu":
+        out = tuple(rank_blocks_plain(blocks, b, p) for p in ends)
+        return out[0] if pos_end is None else out
+    _check_cuda("rank", b, blocks, *ends)
+    _build.check_constants("rank4", _KERNEL_CONSTANTS["rank4"])
+    out = tuple(torch.empty_like(p) for p in ends)
+    if b.numel():
+        _build.launch(
+            "rank4", "bgt_rank", [_VP] * 6 + [_LL, _LL], b.device,
+            _build.ptr(blocks), _build.ptr(b), _build.ptr(pos),
+            _build.ptr(pos_end) if pos_end is not None else None,
+            _build.ptr(out[0]), _build.ptr(out[-1]), blocks.shape[0], b.numel(),
+        )
+        rank.launches += 1
+    return out[0] if pos_end is None else out
+
+
+rank.launches = 0
 
 
 def _check_tiles(name, tiles: Rank4Tiles, pos):
@@ -376,22 +436,13 @@ def _check_tiles(name, tiles: Rank4Tiles, pos):
 
 
 _KERNEL_CONSTANTS = {
+    "rank4": (("bgt_rank4_block_words", BLOCK_WORDS),),
     "rank4_tiled": (
         ("bgt_rank4_tiled_tile_w", TILE_W), ("bgt_rank4_tiled_q_block", Q_BLOCK),
         ("bgt_rank4_tiled_counter_ints", COUNTER_INTS),
     ),
     "chain_window": (("bgt_chain_window_block_words", BLOCK_WORDS),),
 }
-
-
-@functools.cache
-def _constants_checked(kernel: str) -> bool:
-    """The layout constants a kernel was compiled with are the wrapper's:
-    asked of the library once, when it is first loaded."""
-    for symbol, value in _KERNEL_CONSTANTS[kernel]:
-        if _build.function(kernel, symbol, [])() != value:
-            raise RuntimeError(f"{kernel}: {symbol} differs from the wrapper's")
-    return True
 
 
 def _bucket_scratch(n_tiles: int, B: int, dev):
@@ -414,7 +465,7 @@ def tile_buckets_kernel(tiles: Rank4Tiles, pos):
     entry is for checks and timing."""
     _check_tiles("tile_buckets_kernel", tiles, pos)
     _check_cuda("tile_buckets_kernel", pos)
-    _constants_checked("rank4_tiled")
+    _build.check_constants("rank4_tiled", _KERNEL_CONSTANTS["rank4_tiled"])
     B, n_tiles = pos.shape[0], tiles.base.shape[0]
     scratch, n_blocks = _bucket_scratch(n_tiles, B, pos.device)
     _build.launch(
@@ -441,7 +492,7 @@ def rank4_tiled(tiles: Rank4Tiles, pos) -> torch.Tensor:
         return rank4_tiled_plain(tiles, pos)
     words, rel, base = tiles
     _check_cuda("rank4_tiled", pos, words, rel, base)
-    _constants_checked("rank4_tiled")
+    _build.check_constants("rank4_tiled", _KERNEL_CONSTANTS["rank4_tiled"])
     B, n_tiles = pos.shape[0], base.shape[0]
     out = torch.empty((B, 4), dtype=torch.int32, device=pos.device)
     if B == 0:
@@ -492,7 +543,7 @@ def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):
     """find_window over pre-built complemented window rows, the whole chain
     in one launch.
 
-    blocks int32 [4, nblk, 8], the rank-block table (``build_rank_blocks``);
+    blocks int32 [nblk, 4, 8], the rank-block table (``build_rank_blocks``);
     win uint8 [P, depth] (``probes._window_bases``); m int32 [P] per-lane
     window length; fixed int64 [5].  Returns (begin int64 [P], end int64
     [P], size int32 [P]): the contract of ``probes.find_window``."""
@@ -515,7 +566,7 @@ def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):
     if win.device.type == "cpu":
         return chain_window_plain(blocks, entry_sizes, fixed, win, m, depth)
     _check_cuda("chain_window", win, blocks, entry_sizes, fixed, m)
-    _constants_checked("chain_window")
+    _build.check_constants("chain_window", _KERNEL_CONSTANTS["chain_window"])
     P = win.shape[0]
     dev = win.device
     begin = torch.empty(P, dtype=torch.int64, device=dev)
@@ -528,7 +579,7 @@ def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):
         [_VP] * 8 + [_LL, _LL, _LL, ctypes.c_int], dev,
         _build.ptr(blocks), _build.ptr(entry_sizes), _build.ptr(fixed),
         _build.ptr(win), _build.ptr(m), _build.ptr(begin), _build.ptr(end),
-        _build.ptr(size), blocks.shape[1], entry_sizes.shape[0], P, depth,
+        _build.ptr(size), blocks.shape[0], entry_sizes.shape[0], P, depth,
     )
     chain_window.launches += 1
     return begin, end, size

@@ -8,12 +8,12 @@ equality: everything is integer), then drives the port's create-and-query
 path at a real size: 120 000 reads of 100 bases over a 2 Mb genome with
 4000 planted SNPs, half of them reverse-complemented, generated in-process
 from seed 12345.  The path is build_seqset -> build_readmap -> save/load ->
-find of all 240 000 oriented reads -> rank4 at the found ranges' ends ->
-push4 -> probe_exact (depth 32) over every position of the doubled fwd+rc
-genome text.  Last, the two rank kernels are timed side by side on a rank
-structure that outgrows the card's L2 cache, where the rank-block table and
-the bucketing kernels of rank4_tiled are held against their plain versions
-too.
+find of all 240 000 oriented reads -> rank4 at the found ranges' ends (and
+the same through rank4_tiled over a tiled table the caller builds) -> push4
+-> probe_exact (depth 32) over every position of the doubled fwd+rc genome
+text.  Last, the rank kernels are timed side by side on a rank structure
+that outgrows the card's L2 cache, where the rank-block table and the
+bucketing kernels of rank4_tiled are held against their plain versions too.
 
 Any failure raises and the exit code is non-zero; there is no CPU fallback.
 Stage times are host-clock times read after ``torch.cuda.synchronize()``;
@@ -62,13 +62,16 @@ CHAIN_OPS_PER_STEP = 48
 
 WRAPPERS = {
     "rank4": rank4_ops.rank4,
+    "rank": rank4_ops.rank,
     "rank4_tiled": rank4_ops.rank4_tiled,
     "gather_sizes": rank4_ops.gather_sizes,
     "chain_window": rank4_ops.chain_window,
     "rank_cum": rank_cum_ops.rank_cum,
 }
+SOURCES = {"rank": "rank4"}  # a kernel whose source is not named after it
 REPLACES = {
     "rank4": "biograph_tpu/ops/rank4.py:134",
+    "rank": "biograph_tpu/ops/rank4.py:134",
     "rank4_tiled": "biograph_tpu/ops/rank4.py:559",
     "gather_sizes": "biograph_tpu/ops/rank4.py:202",
     "chain_window": "biograph_tpu/ops/rank4.py:359",
@@ -207,11 +210,25 @@ def make_workload(genome_len: int, n_reads: int, n_snps: int, read_len: int):
 
 
 def check_rank_blocks(name, words, cum, blocks, pos):
-    """The rank-block table's rank against the structure's, base by base."""
+    """The rank-block table, its two plain versions and its two kernels
+    against the structure as stored.  ``pos`` may lie outside [0, 32*nw]:
+    the table's forms clamp it, the stored form is asked the clamped one."""
+    inside = pos.clamp(0, 32 * words.shape[1])
     for b in range(4):
         base = torch.full_like(pos, b)
         require_equal(f"rank_blocks {name} base {b}", rank4_ops.rank_blocks_plain(blocks, base, pos),
-                      rank4_ops.rank_plain(words, cum, base, pos))
+                      rank4_ops.rank_plain(words, cum, base, inside))
+    got4 = rank4_ops.rank4(blocks, pos)
+    require_equal(f"rank4 {name}", got4, rank4_ops.rank4_blocks_plain(blocks, pos))
+    require_equal(f"rank4 {name} vs the structure as stored", got4, rank4_ops.rank4_plain(words, cum, inside))
+    b = (pos * 2654435761 >> 7) & 3  # a base a query, in no pattern
+    ends = pos.flip(0).contiguous()
+    got = rank4_ops.rank(blocks, b, pos)
+    require_equal(f"rank {name}", got, rank4_ops.rank_blocks_plain(blocks, b, pos))
+    require_equal(f"rank {name} vs the structure as stored", got, rank4_ops.rank_plain(words, cum, b, inside))
+    require_equal(f"rank {name}, both ends of a range", rank4_ops.rank(blocks, b, pos, ends),
+                  (got, rank4_ops.rank_blocks_plain(blocks, b, ends)))
+    return got4
 
 
 def check_buckets(name, tiles, pos):
@@ -253,28 +270,56 @@ def chain_block_edges(dev, g, words, blocks, nw):
         require_equal(f"chain_window block edge nw={nw} n={n}", rank4_ops.chain_window(*args), rank4_ops.chain_window_plain(*args))
 
 
+def random_words(shape, dev, g):
+    """int32 words with every bit random, from the CPU generator g."""
+    words64 = torch.randint(0, 1 << 32, shape, generator=g)
+    return torch.where(words64 >= 1 << 31, words64 - (1 << 32), words64).to(torch.int32).to(dev)
+
+
+def rank_cum_edges(dev, g):
+    """rank_cum at every small size, around the multiples of the words a
+    block takes (a row's first 16-byte group may start up to three words
+    before the row), as one row and as four, on whole allocations and on row
+    views that start off a 16-byte boundary, and on a row whose total passes
+    2^30."""
+    T = rank_cum_ops.TILE_WORDS
+    sizes = [*range(1, 70), 127, 128, 129, 1000, 1023, 1024, 1025, 3000]
+    sizes += [k * T + o for k in (1, 2, 3) for o in (-4, -3, -2, -1, 0, 1, 2, 3)]
+    for nw in sizes:
+        words = random_words((4, nw), dev, g)
+        want = rank_cum_ops.rank_cum_plain(words)
+        require_equal(f"rank_cum [4, {nw}]", rank_cum_ops.rank_cum(words), want)
+        require_equal(f"rank_cum [1, {nw}]", rank_cum_ops.rank_cum(words[:1]), want[:1])
+        for r in range(4):
+            require_equal(f"rank_cum [{nw}], row {r} as a view", rank_cum_ops.rank_cum(words[r]), want[r])
+    ones = torch.full(((1 << 25) + T + 3,), -1, dtype=torch.int32, device=dev)
+    got = rank_cum_ops.rank_cum(ones)
+    if int(got[-1]) <= 1 << 30:
+        raise AssertionError("rank_cum: the long row's total does not pass 2^30")
+    require_equal("rank_cum, total past 2^30", got, rank_cum_ops.rank_cum_plain(ones))
+
+
 def edge_checks(dev):
     """Small and ragged shapes: B not a multiple of the block, pos == 0,
-    pos == n, pos == 32*nw, m == 0, m == depth, sizes that are not a
-    multiple of the scan block, rank blocks that end inside the structure's
+    pos == n, pos == 32*nw, pos < 0, m == 0, m == depth, scan sizes around the
+    multiples of the scan's tile, rank blocks that end inside the structure's
     last word group, buckets that are empty, single or hold every query."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
-    for nw in (1, 7, 1000, 1023, 1024, 1025, 3000):
-        words64 = torch.randint(0, 1 << 32, (4, nw), generator=g)
-        words = torch.where(words64 >= 1 << 31, words64 - (1 << 32), words64).to(torch.int32).to(dev)
-        cum = torch.stack([rank_cum_ops.rank_cum_plain(words[b]) for b in range(4)]).to(torch.int64)
-        for b in range(4):
-            require_equal(
-                f"rank_cum nw={nw}", rank_cum_ops.rank_cum(words[b].contiguous()),
-                rank_cum_ops.rank_cum_plain(words[b]),
-            )
+    rank_cum_edges(dev, g)
+    for nw in (1, 5, 6, 7, 193, 1000, 1023, 1024, 1025, 3000):
+        words = random_words((4, nw), dev, g)
+        cum = rank_cum_ops.rank_cum_plain(words).to(torch.int64)
         n = 32 * nw - 5
         pos = torch.cat([
             torch.randint(0, n + 1, (1003,), generator=g),
-            torch.tensor([0, 1, 31, 32, 191, 192, n - 1, n, 32 * nw - 1, 32 * nw]).clamp(max=32 * nw),
+            torch.tensor([0, 1, 31, 32, 191, 192, n - 1, n, 32 * nw - 1, 32 * nw]).clamp(0, 32 * nw),
         ]).to(dev)
         want = rank4_ops.rank4_plain(words, cum, pos)
-        require_equal(f"rank4 nw={nw}", rank4_ops.rank4(words, cum, pos), want)
+        # the rank-block table (nw that is and is not a multiple of the
+        # block), with positions before the structure and past it as well
+        blocks = rank4_ops.build_rank_blocks(words, cum)
+        outside = torch.tensor([-1, -7, -(1 << 40), 32 * nw + 1, 32 * nw + 200, 1 << 40], device=dev)
+        check_rank_blocks(f"nw={nw}", words, cum, blocks, torch.cat([pos, outside]))
         # rank4_tiled: a dense bucket (its tile staged in shared memory), a
         # sparse one (read in place), one query, and every query in one tile
         tiles = rank4_ops.build_rank4_tiles(words, cum)
@@ -286,9 +331,6 @@ def edge_checks(dev):
             require_equal(f"rank4_tiled {name} nw={nw}", rank4_ops.rank4_tiled(tiles, sel),
                           rank4_ops.rank4_plain(words, cum, sel))
             check_buckets(f"{name} nw={nw}", tiles, sel)
-        # the rank-block table: nw that is and is not a multiple of the block
-        blocks = rank4_ops.build_rank_blocks(words, cum)
-        check_rank_blocks(f"nw={nw}", words, cum, blocks, pos)
         chain_block_edges(dev, g, words, blocks, nw)
     sizes = torch.randint(1, 70000, (777,), generator=g).to(torch.int32).to(dev)
     idx = torch.randint(0, 777, (5, 201), generator=g).to(dev)
@@ -302,7 +344,11 @@ def edge_checks(dev):
     text = torch.from_numpy(rng.integers(0, 4, 6000, dtype=np.uint8)).to(dev)
     text[:3000] = torch.from_numpy(codes[:75].reshape(-1)).to(dev)
     d = ss.d
-    check_rank_blocks("seqset", d.prev_words, d.prev_cum, d.rank_blocks, torch.arange(ss.n_entries + 1, device=dev))
+    check_rank_blocks("seqset", ss.prev_words, ss.prev_cum, d.rank_blocks, torch.arange(ss.n_entries + 1, device=dev))
+    entry = torch.arange(ss.n_entries, device=dev)
+    for b in range(4):  # the entry's bit, from the block's word slot and from the stored word
+        stored = (ss.prev_words[b, entry >> 5].to(torch.int64) >> (entry & 31)) & 1
+        require_equal(f"entry_has_front base {b}", d.entry_has_front(entry, torch.full_like(entry, b)), stored.to(torch.bool))
     # depths whose rows the kernel fetches 16 bytes at a time (16, 32, 48) and byte by byte (1, 17)
     for depth in (1, 16, 17, 32, 48):
         pos = torch.arange(0, 6000, 3, device=dev)[:1999]
@@ -328,7 +374,7 @@ def chain_sectors(d, win, m, depth):
     of entry_sizes when the pushed range is not empty; against the structure
     as stored the two ranks ask for four (a word and a count each)."""
     blocks, n = d.rank_blocks, d.n_entries
-    last_word = blocks.shape[1] * rank4_ops.BLOCK_WORDS - 1
+    last_word = blocks.shape[0] * rank4_ops.BLOCK_WORDS - 1
     begin, end, size = probes._start(d, win.shape[0])
     steps = sectors = stored = 0
     for s in range(depth):
@@ -350,14 +396,20 @@ def chain_sectors(d, win, m, depth):
     return steps, sectors, stored, (begin, end, size)
 
 
-def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe_m_mixed, breakdown=False):
+# One 32-byte sector: what a random read of 4 or 8 bytes moves.
+SECTOR = 32
+
+
+def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, probe_m_mixed, breakdown=False):
     """Each kernel at the main path's shapes: equality with the plain
     version, times, and the least time the card could take.  ``ms``,
     ``plain_ms`` and ``library_ms`` are device times (calls queued behind a
     stall); ``call_ms`` is the kernel wrapper's time per call as a caller
     issuing it in a loop sees it, host cost included."""
     rows = []
-    stall = make_stall(d.device)
+    d = ss.d
+    dev = d.device
+    stall = make_stall(dev)
 
     def row(name, kernel, plain, bytes_moved, operations, library=None, plain_reps=3):
         got, want = kernel(), plain()
@@ -367,7 +419,7 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": f"biograph_tpu_torch/csrc/{name}.cu",
+            "source": f"biograph_tpu_torch/csrc/{SOURCES.get(name, name)}.cu",
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": err,
@@ -378,28 +430,50 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": event_ms(library, 20, stall=stall) if library else None,
         })
+        return rows[-1]
 
-    nw = d.prev_words.shape[1]
+    # the structure as stored, brought to the card as the oracle of the table's forms
+    words, cum = ss.prev_words.to(dev), ss.prev_cum.to(dev)
+    nw = words.shape[1]
     n = d.n_entries
-    structure_bytes = 4 * nw * (4 + 8)
-    blocks_bytes = d.rank_blocks.numel() * 4
+    blocks = d.rank_blocks
+    blocks_bytes = blocks.numel() * 4
 
-    # rank4 as push4 calls it: both ends of every find range, stacked
+    # rank4 as push4 calls it: both ends of every find range, stacked, against
+    # the rank-block table.  A query asks for four sectors of the table, a
+    # quarter of one for its position and half of one for its result.
     pos = torch.cat([find_ranges.begin, find_ranges.end]).contiguous()
     B = pos.shape[0]
-    row(
+    require_equal("rank4 vs the structure as stored", rank4_ops.rank4(blocks, pos), rank4_ops.rank4_plain(words, cum, pos))
+    r = row(
         "rank4",
-        lambda: rank4_ops.rank4(d.prev_words, d.prev_cum, pos),
-        lambda: rank4_ops.rank4_plain(d.prev_words, d.prev_cum, pos),
-        B * 8 + B * 16 + min(B * 4 * 12, structure_bytes),
+        lambda: rank4_ops.rank4(blocks, pos),
+        lambda: rank4_ops.rank4_blocks_plain(blocks, pos),
+        B * 8 + B * 16 + min(B * 4 * SECTOR, blocks_bytes),
         B * 24,
     )
+    r["sectors"] = B * 4 + B * (8 + 16) // SECTOR
+    r["sectors_per_s"] = r["sectors"] / r["ms"] * 1e3
 
-    # rank4_tiled as push4 calls it: the same positions against the tiled
-    # table; the time is the whole call (the bucketing kernels and the rank
-    # kernel, one C call), prologue_ms the bucketing kernels alone and
+    # rank as find's push_front calls it: one base a query, both ends of each
+    # range in one launch (two sectors, or one when they share a block)
+    b = torch.randint(0, 4, find_ranges.begin.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+    ends = (find_ranges.begin.contiguous(), find_ranges.end.contiguous())
+    require_equal("rank vs the structure as stored", rank4_ops.rank(blocks, b, *ends),
+                  tuple(rank4_ops.rank_plain(words, cum, b, p) for p in ends))
+    row(
+        "rank",
+        lambda: rank4_ops.rank(blocks, b, *ends),
+        lambda: tuple(rank4_ops.rank_blocks_plain(blocks, b, p) for p in ends),
+        B // 2 * (8 + 16 + 16) + min(B * SECTOR, blocks_bytes),
+        B * 6,
+    )
+
+    # rank4_tiled as a bulk caller calls it: the same positions against the
+    # tiled table; the time is the whole call (the bucketing kernels and the
+    # rank kernel, one C call), prologue_ms the bucketing kernels alone and
     # plain_prologue_ms their plain version (a sort, two searches, a scan)
-    tiles = d.rank4_tiles
+    tiles = rank4_ops.build_rank4_tiles(words, cum)
     table_bytes = tiles.words.numel() * 4 + tiles.rel.numel() * 2 + tiles.base.numel() * 8
     check_buckets("main path", tiles, pos)
 
@@ -417,12 +491,18 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe
     rows[-1]["plain_prologue_ms"] = event_ms(plain_prologue, 20, stall=stall)
     if breakdown:
         rows[-1]["kernels_us"] = kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos))
-    require_equal("rank4_tiled vs rank4", rank4_ops.rank4_tiled(tiles, pos), rank4_ops.rank4(d.prev_words, d.prev_cum, pos))
+    require_equal("rank4_tiled vs rank4", rank4_ops.rank4_tiled(tiles, pos), rank4_ops.rank4(blocks, pos))
 
-    # gather_sizes as push4 calls it: the [B/2, 4] pushed begins
+    # gather_sizes as push4 calls it: the [B/2, 4] pushed begins.  The byte
+    # bound counts 4 bytes a gathered size; a read of 4 bytes at a random
+    # place moves a whole sector, so beside it stand the sectors the call asks
+    # for (one an index, plus the indices read and the sizes written), the
+    # distinct sectors of entry_sizes among them, and two floors: those
+    # sectors' bytes at the device-memory rate, and, since entry_sizes sits in
+    # L2, the sectors over the rate at which chain_window below is served them.
     nb4, _ = d.push4(find_ranges)
     idx = nb4.clamp(max=n - 1).contiguous()
-    row(
+    gather = row(
         "gather_sizes",
         lambda: rank4_ops.gather_sizes(d.entry_sizes, idx),
         lambda: rank4_ops.gather_sizes_plain(d.entry_sizes, idx),
@@ -431,6 +511,9 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe
         library=lambda: torch.index_select(d.entry_sizes, 0, idx.reshape(-1)),
         plain_reps=20,
     )
+    gather["sectors"] = idx.numel() + idx.numel() * (8 + 4) // SECTOR
+    gather["distinct_sectors_gathered"] = int(torch.unique(idx >> 3).numel())
+    gather["sector_bytes_ms"] = gather["sectors"] * SECTOR / PEAK_BYTES_PER_S * 1e3
 
     # chain_window as a probe_exact round calls it, twice: every lane at
     # full depth, and the per-lane lengths the bisection's third round tests.
@@ -444,9 +527,8 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe
     # kernel's time follows while everything sits in L2.
     win = probes._window_bases(probe_text, probe_pos, DEPTH)
     P = probe_pos.shape[0]
-    g = torch.Generator(device=d.device).manual_seed(SEED + 2)
-    check_rank_blocks("main path", d.prev_words, d.prev_cum, d.rank_blocks,
-                      torch.randint(0, 32 * nw + 1, (1 << 20,), device=d.device, generator=g))
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    check_rank_blocks("main path", words, cum, blocks, torch.randint(0, 32 * nw + 1, (1 << 20,), device=dev, generator=g))
     for case, m in (("m == depth", probe_m), ("mixed m: round 3 of probe_exact", probe_m_mixed)):
         args = (d.rank_blocks, d.entry_sizes, d.fixed, win, m, DEPTH)
         steps, sectors, stored, replayed = chain_sectors(d, win, m, DEPTH)
@@ -480,16 +562,23 @@ def kernel_table(d, launches, find_ranges, probe_text, probe_pos, probe_m, probe
             },
         })
 
-    # rank_cum as the build calls it: one base row
-    words = d.prev_words[0].contiguous()
+    # the sector floor of gather_sizes in L2, at the rate this run's
+    # chain_window (m == depth) is served its sectors
+    l2_sectors_per_s = next(r["sectors_per_s"] for r in rows if r["name"] == "chain_window")
+    gather["sector_floor_ms"] = gather["sectors"] / l2_sectors_per_s * 1e3
+
+    # rank_cum as the build calls it: the four base rows in one launch
     row(
         "rank_cum",
         lambda: rank_cum_ops.rank_cum(words),
         lambda: rank_cum_ops.rank_cum_plain(words),
-        nw * 8,
-        nw * 16,
+        4 * nw * 8,
+        4 * nw * 16,
         plain_reps=20,
     )
+    rows[-1]["one_row_ms"] = event_ms(lambda: rank_cum_ops.rank_cum(words[0]), 20, stall=stall)
+    if breakdown:  # the scan kernel and the memset of its descriptors, apart
+        rows[-1]["kernels_us"] = kernels_us(lambda: rank_cum_ops.rank_cum(words))
     return rows
 
 
@@ -506,25 +595,35 @@ def bisection_lengths(d, text, pos, seg_lo, depth, round_no):
 
 
 def rank_past_l2(dev, stall, breakdown=False):
-    """rank4 and rank4_tiled side by side on a random rank structure that
-    outgrows the L2 cache, at uniformly random positions: equality with the
-    plain version, and device time per call; with ``breakdown`` also the
-    time of each kernel inside a rank4_tiled call."""
+    """rank4, rank and rank4_tiled side by side on a random rank structure
+    that outgrows the L2 cache, at uniformly random positions: equality with
+    the plain versions, and device time per call; with ``breakdown`` also the
+    time of each kernel inside a rank4_tiled call.  The structure's counts
+    come from one rank_cum call on its four rows of 2^24 words."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     words = torch.randint(-(1 << 31), 1 << 31, (4, BIG_NW), dtype=torch.int32, device=dev, generator=g)
-    cum = torch.stack([rank_cum_ops.rank_cum(words[b]) for b in range(4)]).to(torch.int64)
-    require_equal("rank_cum past L2", rank_cum_ops.rank_cum(words[3]), rank_cum_ops.rank_cum_plain(words[3]))
+    cum32 = rank_cum_ops.rank_cum(words)
+    require_equal("rank_cum past L2", cum32, rank_cum_ops.rank_cum_plain(words))
+    copy_to = torch.empty_like(words)
+    times = {
+        "rank_cum_ms": event_ms(lambda: rank_cum_ops.rank_cum(words), 10, stall=stall),
+        "rank_cum_one_row_ms": event_ms(lambda: rank_cum_ops.rank_cum(words[0]), 10, stall=stall),
+        "rank_cum_bound_ms": words.numel() * 8 / PEAK_BYTES_PER_S * 1e3,
+        "rank_cum_plain_ms": event_ms(lambda: rank_cum_ops.rank_cum_plain(words), 3, warm=1, stall=stall),
+        # a yardstick: one copy of as many bytes in and out
+        "copy_same_bytes_ms": event_ms(lambda: copy_to.copy_(words), 10, stall=stall),
+    }
+    del copy_to
+    cum = cum32.to(torch.int64)
+    del cum32
     tiles = rank4_ops.build_rank4_tiles(words, cum)
+    blocks = rank4_ops.build_rank_blocks(words, cum)
     pos = torch.randint(0, 32 * BIG_NW + 1, (BIG_QUERIES,), device=dev, generator=g)
-    want = rank4_ops.rank4_plain(words, cum, pos)
-    require_equal("rank4 past L2", rank4_ops.rank4(words, cum, pos), want)
+    want = check_rank_blocks("past L2", words, cum, blocks, pos)
     require_equal("rank4_tiled past L2", rank4_ops.rank4_tiled(tiles, pos), want)
     check_buckets("past L2", tiles, pos)
-    blocks = rank4_ops.build_rank_blocks(words, cum)
-    check_rank_blocks("past L2", words, cum, blocks, pos[: 1 << 20])
-    blocks_bytes = blocks.numel() * 4
-    del blocks
     pos_sorted = pos.sort().values
+    require_equal("rank4 past L2, sorted positions", rank4_ops.rank4(blocks, pos_sorted), rank4_ops.rank4_plain(words, cum, pos_sorted))
     # many tiles: warps whose queries all share a tile, and warps where half do
     check_buckets("past L2, sorted", tiles, pos_sorted)
     half = BIG_QUERIES // 2
@@ -538,22 +637,27 @@ def rank_past_l2(dev, stall, breakdown=False):
         "rank4_tiled_kernels_us": kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos)),
         "rank4_tiled_sorted_positions_kernels_us": kernels_us(lambda: rank4_ops.rank4_tiled(tiles, pos_sorted)),
     } if breakdown else {}
+    b = pos & 3
+    ends = (pos[:half].contiguous(), pos[half:].contiguous())
     return {
         **split,
+        **times,
         "words_per_base": BIG_NW,
         "positions": BIG_QUERIES,
         "structure_bytes": words.numel() * 4 + cum.numel() * 8,
         "table_bytes": tiles.words.numel() * 4 + tiles.rel.numel() * 2 + tiles.base.numel() * 8,
-        "rank_blocks_bytes": blocks_bytes,
+        "rank_blocks_bytes": blocks.numel() * 4,
         "tiles": tiles.base.shape[0],
         "rank4_tiled_buckets_ms": event_ms(lambda: rank4_ops.tile_buckets_kernel(tiles, pos), 10, stall=stall),
-        "rank4_ms": event_ms(lambda: rank4_ops.rank4(words, cum, pos), 10, stall=stall),
+        "rank4_ms": event_ms(lambda: rank4_ops.rank4(blocks, pos), 10, stall=stall),
         "rank4_tiled_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos), 10, stall=stall),
-        "rank4_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4(words, cum, pos_sorted), 10, stall=stall),
+        "rank4_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4(blocks, pos_sorted), 10, stall=stall),
         "rank4_tiled_sorted_positions_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos_sorted), 10, stall=stall),
         "rank4_tiled_one_tile_ms": event_ms(lambda: rank4_ops.rank4_tiled(tiles, pos_one_tile), 10, stall=stall),
         "rank4_tiled_one_tile_buckets_ms": event_ms(lambda: rank4_ops.tile_buckets_kernel(tiles, pos_one_tile), 10, stall=stall),
-        "plain_ms": event_ms(lambda: rank4_ops.rank4_plain(words, cum, pos), 3, warm=1, stall=stall),
+        "rank_one_position_ms": event_ms(lambda: rank4_ops.rank(blocks, b, pos), 10, stall=stall),
+        "rank_both_ends_ms": event_ms(lambda: rank4_ops.rank(blocks, b[:half].contiguous(), *ends), 10, stall=stall),
+        "plain_ms": event_ms(lambda: rank4_ops.rank4_blocks_plain(blocks, pos), 3, warm=1, stall=stall),
     }
 
 
@@ -563,8 +667,9 @@ def rank_past_l2(dev, stall, breakdown=False):
 
 
 def main_path(dev, genome, codes, lengths, depth=DEPTH):
-    """reads -> seqset -> readmap -> save/load -> find -> push4 ->
-    probe_exact.  Returns (stage stats, what the later checks need)."""
+    """reads -> seqset -> readmap -> save/load -> find -> rank4 ->
+    rank4_tiled -> push4 -> probe_exact.  Returns (stage stats, what the
+    later checks need)."""
     R = codes.shape[0]
     stats = {}
     ss, stats["build_s"] = timed(lambda: build_seqset(codes, lengths, device=dev), "build")
@@ -579,13 +684,22 @@ def main_path(dev, genome, codes, lengths, depth=DEPTH):
 
     (ss2, rm2), stats["save_load_s"] = timed(save_load)
     for name in ("fixed", "prev_words", "prev_cum", "entry_sizes", "shared", "pop_sel"):
-        if not torch.equal(getattr(ss, name), getattr(ss2, name)):
+        if not torch.equal(getattr(ss, name).cpu(), getattr(ss2, name).cpu()):
             raise AssertionError(f"seqset field {name} changed across save/load")
     del ss, rm
-    d = ss2.d
-    # the two derived rank tables, built by the first query that reads them:
-    # built here so that no stage below carries their cost
-    _, stats["rank_tables_s"] = timed(lambda: (d.rank4_tiles, d.rank_blocks))
+    # the query engine reads the rank structure through the rank-block table
+    # alone, built here from the stored pair, which stays where load put it
+    d, stats["rank_blocks_s"] = timed(lambda: ss2.d)
+    d.rank4(torch.zeros(1, dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    held = [ss2.fixed, ss2.entry_sizes, ss2.shared, ss2.pop_sel, d.rank_blocks]
+    stats["memory"] = {
+        "allocated_after_load_and_first_query_bytes": torch.cuda.memory_allocated() if dev.type == "cuda" else None,
+        "seqset_on_device_bytes": sum(t.numel() * t.element_size() for t in held),
+        "stored_pair_bytes": sum(t.numel() * t.element_size() for t in (ss2.prev_words, ss2.prev_cum)),
+        "stored_pair_on": ss2.prev_words.device.type,
+        "rank_blocks_bytes": d.rank_blocks.numel() * 4,
+    }
 
     codes_dev = torch.from_numpy(codes).to(dev)
     lens_dev = torch.from_numpy(lengths).to(dev)
@@ -606,6 +720,14 @@ def main_path(dev, genome, codes, lengths, depth=DEPTH):
         raise AssertionError("a read's find range does not contain its readmap entry")
 
     ranked, stats["rank4_s"] = timed(lambda: d.rank4(torch.cat([found.begin, found.end])), "rank4")
+    # the same ranks as a bulk caller of rank4_tiled gets them: the tiled
+    # table is that caller's to build, from the stored pair
+    tiles, stats["rank4_tiles_s"] = timed(lambda: rank4_ops.build_rank4_tiles(ss2.prev_words.to(dev), ss2.prev_cum.to(dev)))
+    stats["memory"]["rank4_tiles_bytes"] = tiles.words.numel() * 4 + tiles.rel.numel() * 2 + tiles.base.numel() * 8
+    ranked_tiled, stats["rank4_tiled_s"] = timed(lambda: rank4_ops.rank4_tiled(tiles, torch.cat([found.begin, found.end])), "rank4_tiled")
+    if not torch.equal(ranked_tiled, ranked):
+        raise AssertionError("rank4_tiled differs from rank4 on the find ranges' ends")
+    del tiles, ranked_tiled
     (nb4, ne4), stats["push4_s"] = timed(lambda: d.push4(found), "push4")
 
     text = torch.from_numpy(np.concatenate([genome, (3 - genome)[::-1]])).to(dev)
@@ -638,27 +760,34 @@ def check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, d
     if int(ss.entry_sizes.max()) != codes.shape[1] or ss.max_entry_len != codes.shape[1]:
         raise AssertionError("longest entry is not a whole read")
 
-    # push4 column b == push_front(r, b)
+    # rank4 and push4 (kernels over the rank-block table) against the plain
+    # versions over the structure as stored: column b == rank(b, .) at both
+    # ends of the range, and == push_front(r, b); d.rank and d.push_front (the
+    # rank kernel) against the same
+    words, cum = ss.prev_words.to(dev), ss.prev_cum.to(dev)
     pick = torch.randint(0, found.begin.shape[0], (sample,), generator=g).to(dev)
     r = SeqsetRanges(found.begin[pick], found.end[pick], found.size[pick])
     B = found.begin.shape[0]
     for b in range(4):
         base = torch.full((sample,), b, device=dev)
-        # rank4 column b == rank(b, .) at both ends of the range
-        if not (torch.equal(ranked[pick, b].to(torch.int64), d.rank(base, r.begin))
-                and torch.equal(ranked[B + pick, b].to(torch.int64), d.rank(base, r.end))):
-            raise AssertionError(f"rank4 column {b} differs from rank")
-        want = d.push_front(r, base)
-        if not (torch.equal(pushed[0][pick, b], want.begin) and torch.equal(pushed[1][pick, b], want.end)):
-            raise AssertionError(f"push4 column {b} differs from push_front")
+        want_begin, want_end = (rank4_ops.rank_plain(words, cum, base, p) for p in (r.begin, r.end))
+        if not (torch.equal(ranked[pick, b].to(torch.int64), want_begin) and torch.equal(ranked[B + pick, b].to(torch.int64), want_end)):
+            raise AssertionError(f"rank4 column {b} differs from rank over the structure as stored")
+        if not (torch.equal(d.rank(base, r.begin), want_begin) and torch.equal(d.rank(base, r.end), want_end)):
+            raise AssertionError(f"rank of base {b} differs from rank over the structure as stored")
+        want = rank4_ops.push_front_plain(words, cum, d.entry_sizes, d.fixed, r.begin, r.end, r.size, base)
+        if not (torch.equal(pushed[0][pick, b], want[0]) and torch.equal(pushed[1][pick, b], want[1])):
+            raise AssertionError(f"push4 column {b} differs from push_front over the structure as stored")
+        if not all(torch.equal(x, y) for x, y in zip(d.push_front(r, base), want)):
+            raise AssertionError(f"push_front of base {b} differs from push_front over the structure as stored")
 
-    # probe_exact through the kernel == the plain push_front loop
+    # probe_exact through chain_window == the loop of push_front steps
     pos = torch.randint(0, 2 * G, (sample,), generator=g).to(dev)
     seg_lo = torch.where(pos >= G, G, 0)
     want = probes.probe_exact(d, text, pos, seg_lo, depth)
     for got_x, want_x in zip(probed, want):
         if not torch.equal(got_x[pos], want_x):
-            raise AssertionError("probe_exact: kernel path differs from the plain path")
+            raise AssertionError("probe_exact: the chain_window path differs from the push_front loop")
 
     # host: a window reported present is a substring of some read or its
     # reverse complement, and one base longer (still inside the search
@@ -729,7 +858,7 @@ def main():
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
     breakdown = profile_to is not None
-    rows = kernel_table(ss.d, launches, found, text, probe_pos, probe_m, probe_m_mixed, breakdown)
+    rows = kernel_table(ss, launches, found, text, probe_pos, probe_m, probe_m_mixed, breakdown)
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:

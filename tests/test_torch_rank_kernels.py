@@ -42,7 +42,9 @@ def test_rank4_plain_vs_xla_and_pallas(nw):
     got = trank4.rank4_plain(tw, tc, tp)
     assert got.dtype == torch.int32 and got.shape == (len(pos), 4)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert torch.equal(trank4.rank4(tw, tc, tp), got)  # CPU tensors -> plain version
+    blocks = trank4.build_rank_blocks(tw, tc)
+    assert torch.equal(trank4.rank4_blocks_plain(blocks, tp), got)  # the table's form == the stored form
+    assert torch.equal(trank4.rank4(blocks, tp), got)  # CPU tensors -> plain version
     table = jrank4.build_rank4_table(words, cum)
     pallas = np.asarray(jrank4.rank4_pallas(table, jnp.asarray(pos), True))
     np.testing.assert_array_equal(got.numpy(), pallas)
@@ -171,6 +173,115 @@ def test_rank_cum_plain_vs_reference_and_pallas(nw):
     assert torch.equal(trank_cum.rank_cum(_i32(w)), got)
 
 
+@pytest.mark.parametrize("R,nw", [(1, 1), (4, 1), (4, 7), (1, 4097), (4, 4093), (4, 4096), (3, 9001)])
+def test_rank_cum_rows_vs_reference_and_pallas(R, nw):
+    """[R, nw]: every row scanned on its own, against the JAX reference and
+    the TPU kernel in interpret mode row by row."""
+    words = _structure(R * 1000 + nw, nw)[0][:R]
+    got = trank_cum.rank_cum(_i32(words))  # CPU tensors -> plain version
+    assert got.dtype == torch.int32 and got.shape == (R, nw)
+    assert torch.equal(got, trank_cum.rank_cum_plain(_i32(words)))
+    for r in range(R):
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(jrank_cum.rank_cum_reference(jnp.asarray(words[r]))))
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(jrank_cum.rank_cum_pallas(jnp.asarray(words[r]), interpret=True)))
+        assert torch.equal(trank_cum.rank_cum(_i32(words[r])), got[r])
+
+
+def _popcount_u32(a):
+    return np.unpackbits(np.ascontiguousarray(a, np.uint32).view(np.uint8)).reshape(-1, 32).sum(axis=1)
+
+
+def _rank_cum_kernel_in_numpy(words, lead, seed, resident):
+    """csrc/rank_cum.cu block by block on the host.  At most ``resident``
+    blocks run at once and the running ones advance in an order shuffled by
+    ``seed``; a block takes its tile by ticket when it starts.  Each block:
+    the 16-byte groups its tile covers (``lead`` words of the buffers' start
+    lie before a 16-byte boundary), the words outside the row masked, the
+    local scan, AGGREGATE published, the look-back 32 descriptors at a time
+    (spinning while one it needs is unset), INCLUSIVE published, the prefixes
+    written.  Returns (out [R, nw], the most descriptors any look-back read)."""
+    R, nw = words.shape
+    T, TW = trank_cum.tiles_per_row(nw), trank_cum.TILE_WORDS
+    flat = words.reshape(-1)
+    out = np.full(R * nw, -1, np.int64)
+    flag = np.zeros((R, T), np.int64)
+    value = np.zeros((R, T), np.int64)
+    rng = np.random.default_rng(seed)
+    counter = [0]
+    longest = [0]
+
+    def block():
+        ticket = counter[0]
+        counter[0] += 1
+        yield
+        row, tile = divmod(ticket, T)
+        row_lo, row_hi = row * nw, row * nw + nw
+        first_group = ((row_lo + lead) & ~3) - lead
+        assert (first_group + lead) % 4 == 0 and row_lo - 4 < first_group <= row_lo
+        g = first_group + tile * TW + np.arange(TW)
+        inside = (g >= row_lo) & (g < row_hi)
+        pc = np.where(inside, _popcount_u32(flat[np.clip(g, 0, R * nw - 1)]), 0)
+        total = int(pc.sum())
+        yield
+        prefix = 0
+        if tile > 0:
+            flag[row, tile], value[row, tile] = 1, total
+            yield
+            look, read = tile - 1, 0
+            while True:
+                at = look - np.arange(32)  # lane 0 reads the nearest
+                live = at >= 0
+                while (flag[row, at[live]] == 0).any():
+                    yield  # a predecessor has not published yet
+                flags = np.where(live, flag[row, np.clip(at, 0, None)], 2)  # left of the row: nothing
+                values = np.where(live, value[row, np.clip(at, 0, None)], 0)
+                ends = np.flatnonzero(flags == 2)
+                last = ends[0] if len(ends) else 31
+                prefix += int(values[: last + 1].sum())
+                read += int(live[: last + 1].sum())
+                if len(ends):
+                    break
+                look -= 32
+                yield
+            longest[0] = max(longest[0], read)
+        flag[row, tile], value[row, tile] = 2, (prefix + total) & 0xFFFFFFFF
+        yield
+        assert (out[g[inside]] == -1).all()  # every word written once
+        out[g[inside]] = prefix + (np.cumsum(pc) - pc)[inside]
+
+    running, started, steps = [], 0, 0
+    while started < R * T or running:
+        steps += 1
+        assert steps < 200 * R * T + 1000, "the scan does not finish"
+        if started < R * T and len(running) < resident and (not running or rng.random() < 0.4):
+            running.append(block())
+            next(running[-1])  # a block takes its ticket as it starts
+            started += 1
+            continue
+        i = int(rng.integers(len(running)))
+        try:
+            next(running[i])
+        except StopIteration:
+            running.pop(i)
+    assert (out >= 0).all() and (flag == 2).all()
+    return out.reshape(R, nw), longest[0]
+
+
+@pytest.mark.parametrize(
+    "R,nw,lead,resident",
+    [(1, 1, 0, 1), (4, 5, 0, 3), (4, 4093, 0, 2), (4, 4096, 0, 7), (4, 4097, 3, 4), (1, 9000, 1, 1), (3, 12289, 2, 5),
+     (2, 4096 * 40 + 17, 0, 50), (1, 4096 * 70, 0, 3)],
+)
+def test_rank_cum_lookback_scan_replayed_in_any_order(R, nw, lead, resident):
+    words = _structure(nw + R, nw)[0][:R]
+    got, longest = _rank_cum_kernel_in_numpy(words, lead, seed=nw + resident, resident=resident)
+    np.testing.assert_array_equal(got, trank_cum.rank_cum_plain(_i32(words)).numpy())
+    T = trank_cum.tiles_per_row(nw)
+    assert T == -(-(nw + 3) // trank_cum.TILE_WORDS) and longest <= T - 1
+    if T > 33 and resident > 33:
+        assert longest > 1  # some look-back added up aggregates
+
+
 @pytest.fixture(scope="module")
 def store():
     """A small seqset built by the JAX package, its TPU kernel tables, and
@@ -239,21 +350,55 @@ def test_chain_fixed_vs_find_window(store):
 def test_wrappers_reject_what_the_kernels_do_not_take(store):
     _, _, _, port, _ = store
     pos = torch.zeros(4, dtype=torch.int64)
+    blocks = port["blocks"]
+    with pytest.raises(TypeError):  # the structure as stored is not the block table
+        trank4.rank4(port["prev_words"], pos)
     with pytest.raises(TypeError):
-        trank4.rank4(port["prev_words"].to(torch.int64), port["prev_cum"], pos)
+        trank4.rank4(blocks.to(torch.int64), pos)
+    with pytest.raises(TypeError):  # base-major is not the table's order
+        trank4.rank4(blocks.transpose(0, 1).contiguous(), pos)
     with pytest.raises(TypeError):
-        trank4.rank4(port["prev_words"], port["prev_cum"], pos.to(torch.int32))
+        trank4.rank4(blocks[:0], pos)
+    with pytest.raises(TypeError):
+        trank4.rank4(blocks, pos.to(torch.int32))
+    with pytest.raises(TypeError):
+        trank4.rank4(blocks, pos[None, :])
+    with pytest.raises(TypeError):
+        trank4.rank(port["prev_cum"], pos, pos)
+    with pytest.raises(TypeError):
+        trank4.rank(blocks, pos.to(torch.int32), pos)
+    with pytest.raises(TypeError):
+        trank4.rank(blocks, pos, pos.to(torch.int32))
+    with pytest.raises(TypeError):  # one base a query: the shapes must agree
+        trank4.rank(blocks, pos[:2], pos)
+    with pytest.raises(TypeError):
+        trank4.rank(blocks, pos, pos, pos[:3])
+    # a CPU/CUDA mix launches nothing and takes no plain version: a table that
+    # is not on the CPU (here on no device at all) with positions that are
+    meta = blocks.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        trank4.rank4(meta, pos)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trank4.rank(meta, pos, pos)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trank4.rank4(blocks, pos.to("meta"))
     with pytest.raises(TypeError):
         trank4.gather_sizes(port["entry_sizes"].to(torch.int64), pos)
     with pytest.raises(TypeError):
         trank_cum.rank_cum(port["prev_cum"][0])
+    with pytest.raises(TypeError):  # rows, not a stack of them
+        trank_cum.rank_cum(port["prev_words"][None])
+    with pytest.raises(TypeError):
+        trank_cum.rank_cum(port["prev_words"][0, 0])
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        trank_cum.rank_cum(port["prev_words"].to("meta"))
     win = torch.zeros((4, 8), dtype=torch.uint8)
     with pytest.raises(TypeError):
-        trank4.chain_window(port["blocks"], port["entry_sizes"], port["fixed"], win, pos, 8)
+        trank4.chain_window(blocks, port["entry_sizes"], port["fixed"], win, pos, 8)
     with pytest.raises(TypeError):  # the structure as stored is not the block table
         trank4.chain_window(port["prev_words"], port["entry_sizes"], port["fixed"], win, pos.to(torch.int32), 8)
     with pytest.raises(TypeError):
-        trank4.chain_window(port["blocks"].to(torch.int64), port["entry_sizes"], port["fixed"], win, pos.to(torch.int32), 8)
+        trank4.chain_window(blocks.to(torch.int64), port["entry_sizes"], port["fixed"], win, pos.to(torch.int32), 8)
     tiles = trank4.build_rank4_tiles(port["prev_words"], port["prev_cum"])
     with pytest.raises(TypeError):
         trank4.rank4_tiled(tiles, pos.to(torch.int32))
@@ -263,7 +408,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(store):
         trank4.rank4_tiled(tiles._replace(base=tiles.base[:0]), pos)
     with pytest.raises(ValueError, match="unsupported device"):  # the bucketing kernels have no CPU form but tile_buckets
         trank4.tile_buckets_kernel(tiles, pos)
-    for fn in (trank4.rank4, trank4.rank4_tiled, trank4.gather_sizes, trank4.chain_window, trank_cum.rank_cum):
+    for fn in (trank4.rank4, trank4.rank, trank4.rank4_tiled, trank4.gather_sizes, trank4.chain_window, trank_cum.rank_cum):
         assert fn.launches == 0  # nothing launches on the CPU
 
 
@@ -275,9 +420,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(store):
 
 @pytest.mark.parametrize("nw", [1, 5, 6, 7, 193, 1025])
 def test_rank_blocks_plain_vs_rank_plain_xla_and_pallas(nw):
-    """One 32-byte block answers a rank: the table's plain rank against the
-    structure as stored, the JAX gather path and the TPU kernel in interpret
-    mode, block edges and pos == 32*nw included."""
+    """One 32-byte block answers a rank: the table's plain ranks (one base
+    and all four) against the structure as stored, the JAX gather path and
+    the TPU kernel in interpret mode, block edges and pos == 32*nw included."""
     words, cum = _structure(nw + 40, nw)
     rng = np.random.default_rng(nw + 41)
     n = nw * 32
@@ -286,22 +431,117 @@ def test_rank_blocks_plain_vs_rank_plain_xla_and_pallas(nw):
     tw, tc, tp = _i32(words), torch.from_numpy(cum), torch.from_numpy(pos)
     blocks = trank4.build_rank_blocks(tw, tc)
     W = trank4.BLOCK_WORDS
-    assert blocks.dtype == torch.int32 and blocks.shape == (4, nw // W + 1, 8) and blocks.is_contiguous()
-    assert blocks.shape[1] * W > nw  # a zero word past the structure: pos == 32*nw needs no special case
+    assert blocks.dtype == torch.int32 and blocks.shape == (nw // W + 1, 4, 8) and blocks.is_contiguous()
+    assert blocks.shape[0] * W > nw  # a zero word past the structure: pos == 32*nw needs no special case
     want = np.asarray(jrank4.rank4_xla(jnp.asarray(words), jnp.asarray(cum), jnp.asarray(pos)))
     pallas = np.asarray(jrank4.rank4_pallas(jrank4.build_rank4_table(words, cum), jnp.asarray(pos), True))
     totals = cum[:, -1] + np.unpackbits(words[:, -1:].view(np.uint8)).reshape(4, 32).sum(axis=1)
+    got4 = trank4.rank4_blocks_plain(blocks, tp)
+    assert got4.dtype == torch.int32 and got4.shape == (len(pos), 4)
+    np.testing.assert_array_equal(got4.numpy(), want)
+    np.testing.assert_array_equal(got4.numpy(), pallas)
+    assert torch.equal(got4, trank4.rank4_plain(tw, tc, tp))
+    assert torch.equal(trank4.rank4(blocks, tp), got4)  # CPU tensors -> plain version
     for b in range(4):
         base = torch.full_like(tp, b)
         got = trank4.rank_blocks_plain(blocks, base, tp)
         assert got.dtype == torch.int64
         assert torch.equal(got, trank4.rank_plain(tw, tc, base, tp))
+        assert torch.equal(trank4.rank(blocks, base, tp), got)  # CPU tensors -> plain version
         np.testing.assert_array_equal(got.numpy(), want[:, b])
         np.testing.assert_array_equal(got.numpy(), pallas[:, b])
         assert int(got[-1]) == totals[b]
         # 2-D positions, a negative one (reads as 0) and one past the table (the totals)
         odd = torch.tensor([[-3, 0], [n, n + 5000]])
         assert trank4.rank_blocks_plain(blocks, torch.full_like(odd, b), odd).tolist() == [[0, 0], [totals[b]] * 2]
+        assert trank4.rank(blocks, torch.full_like(odd, b), odd).tolist() == [[0, 0], [totals[b]] * 2]
+    assert trank4.rank4(blocks, torch.tensor([-3, n + 5000])).tolist() == [[0] * 4, totals.tolist()]
+    # one base a query, both ends of a range in one call
+    b = torch.from_numpy(rng.integers(0, 4, len(pos)))
+    ends = tp.flip(0)
+    r0, r1 = trank4.rank(blocks, b, tp, ends)
+    assert torch.equal(r0, trank4.rank_plain(tw, tc, b, tp)) and torch.equal(r1, trank4.rank_plain(tw, tc, b, ends))
+    np.testing.assert_array_equal(r0.numpy(), want[np.arange(len(pos)), b.numpy()])
+    # the entry's own bit, read from the block's word slot
+    e = tp.clamp(max=n - 1)
+    stored = (words[b.numpy(), e.numpy() >> 5] >> (e.numpy() & 31).astype(np.uint32)) & 1
+    np.testing.assert_array_equal(trank4.has_bit_blocks(blocks, b, e).numpy(), stored.astype(bool))
+
+
+def _rank_in_block_numpy(sector, r):
+    """rank_in_block of csrc/rank_blocks.cuh: the count, plus the set bits
+    below bit r of the block's three 64-bit word pairs, by its masks."""
+    all64 = (1 << 64) - 1
+    m0 = all64 if r >= 64 else (1 << r) - 1
+    m1 = all64 if r >= 128 else ((1 << (r - 64)) - 1 if r > 64 else 0)
+    m2 = (1 << (r - 128)) - 1 if r > 128 else 0
+    count, q0, q1, q2 = (int(x) for x in sector)
+    return count + bin(q0 & m0).count("1") + bin(q1 & m1).count("1") + bin(q2 & m2).count("1")
+
+
+def _locate_in_blocks_numpy(pos, last_word):
+    """locate_in_blocks of csrc/rank_blocks.cuh: (block, bit inside it)."""
+    pos = max(int(pos), 0)
+    w = min(pos >> 5, last_word)
+    k = w // trank4.BLOCK_WORDS
+    return k, (w - k * trank4.BLOCK_WORDS) * 32 + (pos & 31)
+
+
+def _rank_kernels_in_numpy(blocks, pos, b, pos_end):
+    """csrc/rank4.cu thread by thread on the host: rank4 (thread t answers
+    base t % 4 of query t / 4 from sector 4k + b of the table) and rank (one
+    thread a query, the second end reusing the first one's sector when both
+    lie in one block).  Returns (rank4 [B, 4], rank at pos, rank at pos_end,
+    queries whose two ends shared a sector)."""
+    sectors = blocks.numpy().view(np.uint64).reshape(-1, 4)  # sector 4k + b: count, words 0-1, 2-3, 4-5
+    last_word = blocks.shape[0] * trank4.BLOCK_WORDS - 1
+    B = len(pos)
+    out4 = np.zeros(4 * B, np.int32)
+    for t in range(4 * B):
+        k, r = _locate_in_blocks_numpy(pos[t >> 2], last_word)
+        out4[t] = _rank_in_block_numpy(sectors[4 * k + (t & 3)], r)
+    out0, out1, shared = np.zeros(B, np.int64), np.zeros(B, np.int64), 0
+    for q in range(B):
+        base = int(b[q]) & 3
+        k0, r0 = _locate_in_blocks_numpy(pos[q], last_word)
+        sector0 = sectors[4 * k0 + base]
+        out0[q] = _rank_in_block_numpy(sector0, r0)
+        k1, r1 = _locate_in_blocks_numpy(pos_end[q], last_word)
+        sector1 = sector0
+        if k1 != k0:
+            sector1 = sectors[4 * k1 + base]
+        else:
+            shared += 1
+        out1[q] = _rank_in_block_numpy(sector1, r1)
+    return out4.reshape(B, 4), out0, out1, shared
+
+
+@pytest.mark.parametrize("nw", [1, 5, 6, 7, 193, 1023, 1024, 1025])
+def test_rank_kernels_replayed_vs_plain_stored_and_xla(nw):
+    """The rank4 and rank kernels' own arithmetic against their plain
+    versions, the stored-form oracles and the JAX gather path: B not a
+    multiple of anything, pos 0 / n / 32*nw, negative and past the table."""
+    words, cum = _structure(nw + 70, nw)
+    rng = np.random.default_rng(nw + 71)
+    n = nw * 32
+    edges = [0, 1, 31, 32, 63, 64, 65, 127, 128, 129, 191, 192, 193, n - 1, n, -1, -9, n + 1, n + 777, 1 << 40]
+    pos = np.concatenate([rng.integers(0, n + 1, 211), edges]).astype(np.int64)
+    near = np.clip(pos + rng.integers(0, 60, len(pos)), None, n)  # range ends: mostly in the same block
+    b = rng.integers(0, 4, len(pos))
+    tw, tc = _i32(words), torch.from_numpy(cum)
+    blocks = trank4.build_rank_blocks(tw, tc)
+    got4, got0, got1, shared = _rank_kernels_in_numpy(blocks, pos, b, near)
+    tp, tn, tb = torch.from_numpy(pos), torch.from_numpy(near), torch.from_numpy(b)
+    np.testing.assert_array_equal(got4, trank4.rank4_blocks_plain(blocks, tp).numpy())
+    np.testing.assert_array_equal(got0, trank4.rank_blocks_plain(blocks, tb, tp).numpy())
+    np.testing.assert_array_equal(got1, trank4.rank_blocks_plain(blocks, tb, tn).numpy())
+    inside, inside_near = tp.clamp(0, n), tn.clamp(0, n)
+    np.testing.assert_array_equal(got4, trank4.rank4_plain(tw, tc, inside).numpy())
+    np.testing.assert_array_equal(got0, trank4.rank_plain(tw, tc, tb, inside).numpy())
+    np.testing.assert_array_equal(got1, trank4.rank_plain(tw, tc, tb, inside_near).numpy())
+    want = np.asarray(jrank4.rank4_xla(jnp.asarray(words), jnp.asarray(cum), jnp.asarray(inside.numpy())))
+    np.testing.assert_array_equal(got4, want)
+    assert 0 < shared <= len(pos)  # the shortcut was taken
 
 
 def test_rank_blocks_keep_exact_int64_counts():
@@ -321,20 +561,10 @@ def _chain_window_kernel_in_numpy(blocks, sizes, fixed, win, m, depth):
     16-byte pieces, one block load per range end, the same-block shortcut,
     the rank from 64-bit masks, the early exit of an empty range.  Returns
     (begin, end, size, [block loads, steps that took the shortcut])."""
-    W = trank4.BLOCK_WORDS
-    nblk = blocks.shape[1]
-    sectors = blocks.numpy().view(np.uint64)  # [4, nblk, 4]: count, words 0-1, 2-3, 4-5
-    last_word = nblk * W - 1
+    sectors = blocks.numpy().view(np.uint64)  # [nblk, 4, 4]: count, words 0-1, 2-3, 4-5
+    last_word = blocks.shape[0] * trank4.BLOCK_WORDS - 1
     n = len(sizes)
     vec16 = depth % 16 == 0
-    all64 = (1 << 64) - 1
-
-    def rank_in_block(sector, r):
-        m0 = all64 if r >= 64 else (1 << r) - 1
-        m1 = all64 if r >= 128 else ((1 << (r - 64)) - 1 if r > 64 else 0)
-        m2 = (1 << (r - 128)) - 1 if r > 128 else 0
-        count, q0, q1, q2 = (int(x) for x in sector)
-        return count + bin(q0 & m0).count("1") + bin(q1 & m1).count("1") + bin(q2 & m2).count("1")
 
     out = np.zeros((3, len(m)), np.int64)
     loads = shortcuts = 0
@@ -356,19 +586,18 @@ def _chain_window_kernel_in_numpy(blocks, sizes, fixed, win, m, depth):
                     end, alive = begin, False
                     break
                 b = int(chunk[i]) & 3
-                pb, pe = max(begin, 0), max(end, 0)
-                wb, we = min(pb >> 5, last_word), min(pe >> 5, last_word)
-                kb, ke = wb // W, we // W
-                sector_b = sectors[b, kb]
+                kb, rb = _locate_in_blocks_numpy(begin, last_word)
+                ke, re = _locate_in_blocks_numpy(end, last_word)
+                sector_b = sectors[kb, b]
                 loads += 1
                 if ke != kb:
-                    sector_e = sectors[b, ke]
+                    sector_e = sectors[ke, b]
                     loads += 1
                 else:
                     sector_e = sector_b
                     shortcuts += 1
-                nb = int(fixed[b]) + rank_in_block(sector_b, (wb - kb * W) * 32 + (pb & 31))
-                ne = int(fixed[b]) + rank_in_block(sector_e, (we - ke * W) * 32 + (pe & 31))
+                nb = int(fixed[b]) + _rank_in_block_numpy(sector_b, rb)
+                ne = int(fixed[b]) + _rank_in_block_numpy(sector_e, re)
                 first = min(max(nb, 0), n - 1)
                 if nb < ne and sizes[first] < size + 1:
                     nb += 1

@@ -13,7 +13,8 @@ from biograph_tpu.index import probes as jprobes
 from biograph_tpu.index.seqset import SeqsetRanges as JRanges
 from biograph_tpu_torch import convert
 from biograph_tpu_torch.index import probes as tprobes
-from biograph_tpu_torch.index.seqset import SeqsetRanges as TRanges
+from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges as TRanges
+from biograph_tpu_torch.ops import rank4 as trank4
 
 L = 40
 G = 1200
@@ -91,7 +92,9 @@ def test_push_front_rank4_push4_sizes_at(world):
     pos = np.concatenate([rng.integers(0, n + 1, 300), [0, n]]).astype(np.int64)
     got4 = td.rank4(torch.from_numpy(pos))
     _eq(got4, jd.rank4(jnp.asarray(pos)))
-    assert torch.equal(td.rank4_tiled(torch.from_numpy(pos)), got4)
+    ts = world["ts"]
+    tiles = trank4.build_rank4_tiles(ts.prev_words, ts.prev_cum)  # the tiled table is its caller's to build
+    assert torch.equal(trank4.rank4_tiled(tiles, torch.from_numpy(pos)), got4)
     for base in range(4):
         bb = np.full(len(pos), base)
         _eq(td.rank(torch.from_numpy(bb), torch.from_numpy(pos)), jd.rank(jnp.asarray(bb), jnp.asarray(pos)))
@@ -123,6 +126,59 @@ def test_entry_primitives_and_sequences(world):
     assert world["ts"].entry_sequence(5) == world["js"].entry_sequence(5)
     assert world["ts"].entry_sequence(5, 7) == world["js"].entry_sequence(5, 7)
     assert world["ts"].n_entries == n == world["js"].n_entries
+
+
+def test_engine_reads_the_rank_structure_through_the_block_table_only(world):
+    """The query engine holds no stored pair: its rank structure is the
+    rank-block table, equal to the one built from the stored pair."""
+    ts = world["ts"]
+    td = ts.d
+    names = set(type(td).__dataclass_fields__)
+    assert "rank_blocks" in names and not names & {"prev_words", "prev_cum", "rank4_tiles"}
+    assert not hasattr(td, "prev_words") and not hasattr(td, "prev_cum")
+    assert torch.equal(td.rank_blocks, trank4.build_rank_blocks(ts.prev_words, ts.prev_cum))
+    assert td.rank_blocks.shape == (ts.prev_words.shape[1] // trank4.BLOCK_WORDS + 1, 4, 8)
+    assert ts.device == td.device == ts.entry_sizes.device
+
+
+@pytest.mark.parametrize("query", ["find", "find_existing", "push_front", "push4", "entry_has_front", "entry_push_front", "rank"])
+def test_queries_of_an_engine_whose_seqset_lost_its_stored_pair(world, tmp_path, query):
+    """Once the engine is built nothing reads prev_words / prev_cum: a seqset
+    loaded from disk whose stored pair is then taken away answers as the JAX
+    package does."""
+    world["ts"].save(str(tmp_path / "ss.bgt"))
+    ts = Seqset.load(str(tmp_path / "ss.bgt"), device="cpu")
+    td = ts.d
+    ts.prev_words = ts.prev_cum = None
+    jd = world["js"].d
+    q, qlen = world["q"], world["qlen"]
+    rng = np.random.default_rng(7)
+    n = ts.n_entries
+    if query == "find":
+        for g, w in zip(td.find(torch.from_numpy(q), torch.from_numpy(qlen)), jd.find(jnp.asarray(q), jnp.asarray(qlen))):
+            _eq(g, w)
+    elif query == "find_existing":
+        codes, lengths = world["codes"], world["lengths"]
+        _eq(td.find_existing(torch.from_numpy(codes), torch.from_numpy(lengths)), jd.find_existing(jnp.asarray(codes), jnp.asarray(lengths)))
+    elif query in ("push_front", "push4"):
+        jr = jd.find(jnp.asarray(q), jnp.asarray(qlen))
+        tr = TRanges(*(torch.from_numpy(np.asarray(x).copy()) for x in jr))
+        if query == "push4":
+            for g, w in zip(td.push4(tr), jd.push4(jr)):
+                _eq(g, w)
+        else:
+            b = rng.integers(0, 4, len(qlen))
+            for g, w in zip(td.push_front(tr, torch.from_numpy(b)), jd.push_front(jr, jnp.asarray(b))):
+                _eq(g, w)
+    else:
+        e = np.concatenate([rng.integers(0, n, 300), [0, n - 1]]).astype(np.int64)
+        b = rng.integers(0, 4, len(e))
+        te, tb, je, jb = torch.from_numpy(e), torch.from_numpy(b), jnp.asarray(e), jnp.asarray(b)
+        if query == "rank":
+            e[-1] = n
+            _eq(td.rank(tb, torch.from_numpy(e)), jd.rank(jb, jnp.asarray(e)))
+        else:
+            _eq(getattr(td, query)(te, tb), getattr(jd, query)(je, jb))
 
 
 def _text(world):
