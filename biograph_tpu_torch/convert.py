@@ -73,3 +73,16 @@ def readmap_from_numpy(arrays: dict, seqset, device="cuda"):
         seqset=seqset,
         **{k: _tensor(arrays[k], dt, dev) for k, dt in READMAP_DTYPES.items()},
     )
+
+
+def reference_from_numpy(flat, is_n, contigs):
+    """A port ``Reference`` from the flat code array, the N mask and the
+    contigs as (name, start, length) triples: host numpy, as in the JAX
+    package, so one reference can be handed to both."""
+    from biograph_tpu_torch.index.reference import Contig, Reference
+
+    return Reference(
+        flat=np.ascontiguousarray(flat, dtype=np.uint8),
+        is_n=np.ascontiguousarray(is_n, dtype=bool),
+        contigs=[Contig(name=str(n), start=int(s), length=int(l)) for n, s, l in contigs],
+    )

@@ -17,12 +17,14 @@ Counterpart of ``biograph_tpu/index/seqset.py``.  Semantics:
 Everything queryable is a flat tensor on one device; all query methods are
 batched.  The engine (``Seqset.d``) holds the rank structure in one form, the
 rank-block table of ``ops/rank4.py`` (one 32-byte sector a rank), built once
-from the stored pair and never saved.  ``rank4`` and ``push4`` (the rank4
-kernel), ``rank``, ``push_front``, ``find`` and ``find_existing`` (the rank
-kernel, both ends of a range in one launch), ``sizes_at`` (gather_sizes) and
-the find-window chains of ``index/probes.py`` (chain_window) all read that
-table when the tensors are on the card, whatever the batch size and whatever
-the seqset's size; the remaining primitives are plain tensor code.
+from the stored pair and never saved.  ``rank4`` (the rank4 kernel),
+``push4`` (the push4 kernel: rank4 at both range ends and the kick's size
+gather in one launch), ``rank``, ``push_front``, ``find`` and
+``find_existing`` (the rank kernel, both ends of a range in one launch),
+``sizes_at`` (gather_sizes) and the find-window chains of
+``index/probes.py`` (chain_window) all read that table when the tensors are
+on the card, whatever the batch size and whatever the seqset's size; the
+remaining primitives are plain tensor code.
 
 Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the 32-bit
 words bit-reinterpreted; ``save`` writes them as ``uint32`` so the artifact
@@ -31,7 +33,7 @@ are kept for ``save`` and for building tables; after ``load`` they stay on
 the host.
 
 Not ported yet (they need ``ops/ltsearch.py``): ``push_front_drop``,
-``pop_front_ranges``, ``truncate_ranges``, ``trunc_gather``.
+``pop_front_ranges``, ``truncate_ranges``.
 """
 
 from __future__ import annotations
@@ -246,19 +248,23 @@ class _SeqsetDevice:
         """Children of each range for ALL four pushed bases at once.
 
         Returns (begin4, end4) int64 [B, 4] indexed by the pushed base —
-        column b equals push_front(r, b).(begin, end).  One stacked rank4
-        over both range ends plus one sizes gather."""
-        B = r.begin.shape[0]
-        r4 = self.rank4(torch.cat([r.begin, r.end])).to(torch.int64)
-        nb = self.fixed[None, :4] + r4[:B]
-        ne = self.fixed[None, :4] + r4[B:]
-        new_size = (r.size + 1)[:, None]
-        kick = (nb < ne) & (self.sizes_at(nb) < new_size)
-        nb = nb + kick.to(nb.dtype)
-        was_valid = (r.begin < r.end)[:, None]
-        nb = torch.where(was_valid, nb, r.begin[:, None])
-        ne = torch.where(was_valid, ne, r.begin[:, None])
-        return nb, ne
+        column b equals push_front(r, b).(begin, end).  One launch of the
+        push4 kernel on the card: both range ends ranked for the four bases
+        and the kick's size gather, fused."""
+        return rank4_ops.push4(
+            self.rank_blocks, self.entry_sizes, self.fixed,
+            r.begin.contiguous(), r.end.contiguous(), r.size.contiguous(),
+        )
+
+    def trunc_gather(self, prev_lt, next_lt, begin, end):
+        """Constant-threshold truncation boundaries via the caller-built
+        widen tables (``variants/discover._trunc_tables``): prev_lt and
+        next_lt are per-entry tensors; returns (new_begin, new_end) for each
+        lane."""
+        n_e = self.n_entries
+        wb = prev_lt[begin.clamp(0, n_e - 1)].clamp(min=0)
+        we = torch.where(end >= n_e, n_e, next_lt[end.clamp(0, n_e - 1)])
+        return wb, we
 
     def find(self, codes, lengths) -> SeqsetRanges:
         """Batched backward search.

@@ -1,5 +1,5 @@
-"""The seqset's rank kernels: rank4 and rank, gather_sizes, chain_window,
-rank4_tiled (K1-K3, K5).
+"""The seqset's rank kernels: rank4 and rank, gather_sizes and push4,
+chain_window, rank4_tiled (K1-K3, K5).
 
 They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
 
@@ -7,6 +7,9 @@ They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
   * ``rank4_tiled``  <- ``rank4_hbm_pallas`` (``_rank4_hbm_kernel``), over
     ``build_rank4_tiles`` <- ``build_rank4_hbm_table``
   * ``gather_sizes`` <- ``gather_bytes_pallas`` (``_gather_bytes_kernel``)
+  * ``push4`` <- the same gather where the seqset uses it, the kick test of
+    ``_SeqsetDevice.push4``, fused with that function's rank4 and the tensor
+    code around the two: all four children of a range in one launch
   * ``chain_window`` <- ``chain_window_pallas`` (``_chain_window_kernel``),
     with ``chain_fixed`` <- ``chain_fixed_pallas`` over contiguous positions
 
@@ -23,9 +26,11 @@ rank structure is the rank-block table (``build_rank_blocks``): 32-byte
 blocks of one int64 count and six words, one aligned sector a rank, the four
 bases' blocks of a position side by side in one aligned 128-byte line.
 ``rank4`` (four lanes a query, one a base), ``rank`` (one base a query, both
-ends of a range in one launch) and ``chain_window`` (the whole dependent
-chain of a lane in registers, no second sector when both range ends share a
-block) read nothing else of the structure.
+ends of a range in one launch), ``push4`` (four lanes a range, both ends
+ranked and the child's first entry size gathered by the lane that needs it)
+and ``chain_window`` (the whole dependent chain of a lane in registers, no
+second sector when both range ends share a block) read nothing else of the
+structure.
 
 ``rank4_tiled`` computes the same [B, 4] ranks as ``rank4`` from a table of
 its own (``Rank4Tiles``: a word column's four words and four tile-relative
@@ -260,6 +265,26 @@ def gather_sizes_plain(entry_sizes, idx) -> torch.Tensor:
     return entry_sizes[idx.to(torch.int64)]
 
 
+def push4_plain(blocks, entry_sizes, fixed, begin, end, size):
+    """Plain version of ``push4``: (begin4, end4) int64 [B, 4], column b the
+    (begin, end) of push_front(range, b); one stacked four-base rank over both
+    range ends and one gather of the children's first entry sizes."""
+    B = begin.shape[0]
+    n = entry_sizes.shape[0]
+    r4 = rank4_blocks_plain(blocks, torch.cat([begin, end])).to(torch.int64)
+    nb = fixed[None, :4] + r4[:B]
+    ne = fixed[None, :4] + r4[B:]
+    new_size = (size + 1)[:, None]
+    sizes_nb = gather_sizes_plain(entry_sizes, nb.clamp(max=n - 1))
+    kick = (nb < ne) & (sizes_nb < new_size)
+    nb = nb + kick.to(nb.dtype)
+    was_valid = (begin < end)[:, None]
+    return (
+        torch.where(was_valid, nb, begin[:, None]),
+        torch.where(was_valid, ne, begin[:, None]),
+    )
+
+
 def push_front_over(rank_ends, entry_sizes, fixed, begin, end, size, b):
     """One batched push_front step over ``rank_ends(b, begin, end)``, which
     ranks both ends of every range; lanes with begin >= end come back as
@@ -441,6 +466,7 @@ _KERNEL_CONSTANTS = {
         ("bgt_rank4_tiled_tile_w", TILE_W), ("bgt_rank4_tiled_q_block", Q_BLOCK),
         ("bgt_rank4_tiled_counter_ints", COUNTER_INTS),
     ),
+    "push4": (("bgt_push4_block_words", BLOCK_WORDS),),
     "chain_window": (("bgt_chain_window_block_words", BLOCK_WORDS),),
 }
 
@@ -537,6 +563,58 @@ def gather_sizes(entry_sizes, idx) -> torch.Tensor:
 
 
 gather_sizes.launches = 0
+
+
+def push4(blocks, entry_sizes, fixed, begin, end, size):
+    """The children of each range for all four pushed bases, in one launch:
+    (begin4, end4) int64 [B, 4], column b the (begin, end) of
+    push_front((begin, end, size), b).  A range with begin >= end comes back
+    as (begin, begin) in every column.
+
+    blocks int32 [nblk, 4, 8], the rank-block table; entry_sizes int32 [n>0];
+    fixed int64 [5]; begin, end int64 [B]; size int32 [B].  Counts are below
+    2^31, as for ``rank4``."""
+    _check_blocks("push4", blocks)
+    if (
+        begin.dtype != torch.int64
+        or begin.dim() != 1
+        or end.dtype != torch.int64
+        or end.shape != begin.shape
+        or size.dtype != torch.int32
+        or size.shape != begin.shape
+        or fixed.dtype != torch.int64
+        or fixed.shape != (5,)
+        or entry_sizes.dtype != torch.int32
+        or entry_sizes.dim() != 1
+    ):
+        raise TypeError(
+            "push4: want begin, end int64 [B], size int32 [B], fixed int64 "
+            "[5], entry_sizes int32 [n]"
+        )
+    if entry_sizes.shape[0] == 0:
+        raise ValueError("push4: entry_sizes is empty")
+    devices = {t.device.type for t in (blocks, entry_sizes, fixed, begin, end, size)}
+    if devices == {"cpu"}:
+        return push4_plain(blocks, entry_sizes, fixed, begin, end, size)
+    _check_cuda("push4", begin, blocks, entry_sizes, fixed, end, size)
+    _build.check_constants("push4", _KERNEL_CONSTANTS["push4"])
+    B = begin.shape[0]
+    begin4 = torch.empty((B, 4), dtype=torch.int64, device=begin.device)
+    end4 = torch.empty((B, 4), dtype=torch.int64, device=begin.device)
+    if B == 0:
+        return begin4, end4
+    _build.launch(
+        "push4", "bgt_push4", [_VP] * 8 + [_LL] * 3, begin.device,
+        _build.ptr(blocks), _build.ptr(entry_sizes), _build.ptr(fixed),
+        _build.ptr(begin), _build.ptr(end), _build.ptr(size),
+        _build.ptr(begin4), _build.ptr(end4), blocks.shape[0],
+        entry_sizes.shape[0], B,
+    )
+    push4.launches += 1
+    return begin4, end4
+
+
+push4.launches = 0
 
 
 def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):

@@ -10,8 +10,17 @@ path at a real size: 120 000 reads of 100 bases over a 2 Mb genome with
 from seed 12345.  The path is build_seqset -> build_readmap -> save/load ->
 find of all 240 000 oriented reads -> rank4 at the found ranges' ends (and
 the same through rank4_tiled over a tiled table the caller builds) -> push4
--> probe_exact (depth 32) over every position of the doubled fwd+rc genome
-text.  Last, the rank kernels are timed side by side on a rank structure
+(and sizes_at at the children it returns) -> probe_exact (depth 32) over every
+position of the doubled fwd+rc genome text.  Then variant discovery runs on the
+same store, from the read store to records (prescreen, chain-kernel front end,
+anchor scan, beam wavefront, extract + affine DP), cold and warm, and is held
+to the genome, to the planted SNPs and, over a region, to the same call on a
+CPU copy of the store, where every kernel's plain version runs; the call is
+then replayed stage by stage with push4, rank and chain_window each held
+against its plain version on the very lanes discovery hands it; a small
+genome with an insertion, a deletion and a block substitution is discovered on
+the card and on the CPU with identical records, which takes the affine DP to
+the card.  Last, the rank kernels are timed side by side on a rank structure
 that outgrows the card's L2 cache, where the rank-block table and the
 bucketing kernels of rank4_tiled are held against their plain versions too.
 
@@ -39,10 +48,12 @@ import torch
 
 from biograph_tpu_torch.build.readmap_build import build_readmap
 from biograph_tpu_torch.build.seqset_build import build_seqset
+from biograph_tpu_torch.convert import reference_from_numpy
 from biograph_tpu_torch.index import probes
 from biograph_tpu_torch.index.readmap import Readmap
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops import _build, rank4 as rank4_ops, rank_cum as rank_cum_ops
+from biograph_tpu_torch.variants import discover as disc
 
 SEED = 12345
 GENOME, READ_LEN, READS, SNPS = 2_000_000, 100, 120_000, 4000
@@ -65,6 +76,7 @@ WRAPPERS = {
     "rank": rank4_ops.rank,
     "rank4_tiled": rank4_ops.rank4_tiled,
     "gather_sizes": rank4_ops.gather_sizes,
+    "push4": rank4_ops.push4,
     "chain_window": rank4_ops.chain_window,
     "rank_cum": rank_cum_ops.rank_cum,
 }
@@ -74,6 +86,7 @@ REPLACES = {
     "rank": "biograph_tpu/ops/rank4.py:134",
     "rank4_tiled": "biograph_tpu/ops/rank4.py:559",
     "gather_sizes": "biograph_tpu/ops/rank4.py:202",
+    "push4": "biograph_tpu/ops/rank4.py:202",
     "chain_window": "biograph_tpu/ops/rank4.py:359",
     "rank_cum": "biograph_tpu/ops/pallas_rank.py:89",
 }
@@ -102,8 +115,11 @@ def timed(fn, stage=None):
 def _profiled(fn, stage):
     from torch.profiler import ProfilerActivity, profile
 
+    # discovery is tens of thousands of launches: its trace keeps the device
+    # side only
+    activities = [ProfilerActivity.CUDA] if stage == "discover" else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         out = fn()
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -192,6 +208,12 @@ def require_equal(name, got, want):
 def make_workload(genome_len: int, n_reads: int, n_snps: int, read_len: int):
     """(genome, codes [R, L], lengths [R]): reads of a SNP-carrying donor,
     the first half reverse-complemented."""
+    return simulate(genome_len, n_reads, n_snps, read_len)[:3]
+
+
+def simulate(genome_len: int, n_reads: int, n_snps: int, read_len: int):
+    """The workload and its truth: (genome, codes, lengths, SNP positions,
+    donor, read starts)."""
     rng = np.random.default_rng(SEED)
     genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
     donor = genome.copy()
@@ -201,7 +223,7 @@ def make_workload(genome_len: int, n_reads: int, n_snps: int, read_len: int):
     codes = donor[starts[:, None] + np.arange(read_len)]
     half = n_reads // 2
     codes[:half] = (3 - codes[:half])[:, ::-1]
-    return genome, codes.astype(np.uint8), np.full(n_reads, read_len, np.int32)
+    return genome, codes.astype(np.uint8), np.full(n_reads, read_len, np.int32), snp, donor, starts
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +321,71 @@ def rank_cum_edges(dev, g):
     require_equal("rank_cum, total past 2^30", got, rank_cum_ops.rank_cum_plain(ones))
 
 
+def push4_unfused(d, r):
+    """push4 as it was before the push4 kernel: the rank4 kernel over both
+    range ends stacked, the gather_sizes kernel, and tensor code around
+    them.  Kept here as the yardstick the fused kernel is timed against."""
+    B = r.begin.shape[0]
+    r4 = rank4_ops.rank4(d.rank_blocks, torch.cat([r.begin, r.end])).to(torch.int64)
+    nb = d.fixed[None, :4] + r4[:B]
+    ne = d.fixed[None, :4] + r4[B:]
+    sizes_nb = rank4_ops.gather_sizes(d.entry_sizes, nb.clamp(max=d.n_entries - 1))
+    kick = (nb < ne) & (sizes_nb < (r.size + 1)[:, None])
+    nb = nb + kick.to(nb.dtype)
+    was_valid = (r.begin < r.end)[:, None]
+    return torch.where(was_valid, nb, r.begin[:, None]), torch.where(was_valid, ne, r.begin[:, None])
+
+
+def push4_edges(dev, g, ss):
+    """push4 against push4_plain and against four push_front calls over the
+    structure as stored: every range of a small seqset's entry pairs, B not a
+    multiple of the block, empty and reversed ranges, begin and end in one
+    rank block and in different ones, end == n, sizes that do and do not
+    trigger the kick, and a made-up store whose pushed begin reaches n (the
+    min(nb, n - 1) clamp)."""
+    d = ss.d
+    n = ss.n_entries
+    words, cum = ss.prev_words.to(dev), ss.prev_cum.to(dev)
+
+    def check(name, begin, end, size):
+        args = (d.rank_blocks, d.entry_sizes, d.fixed, begin.contiguous(), end.contiguous(), size.contiguous())
+        got = rank4_ops.push4(*args)
+        require_equal(f"push4 {name}", got, rank4_ops.push4_plain(*args))
+        for b in range(4):
+            want = rank4_ops.push_front_plain(words, cum, d.entry_sizes, d.fixed, begin, end, size, torch.full_like(begin, b))
+            require_equal(f"push4 {name} column {b} vs push_front as stored", (got[0][:, b], got[1][:, b]), want[:2])
+
+    entry = torch.arange(n + 1, device=dev)
+    for width in (0, 1, 2, 7, 191, 192, 193, 1000):
+        end = (entry + width).clamp(max=n)
+        for size in (0, 1, 24, 39, 40):  # below, at and above the entries' sizes: the kick on and off
+            check(f"every entry, width {width}, size {size}", entry, end, torch.full_like(entry, size, dtype=torch.int32))
+    B = 1003  # not a multiple of the block
+    begin = torch.randint(0, n + 1, (B,), generator=g).to(dev)
+    end = torch.randint(0, n + 1, (B,), generator=g).to(dev)  # about half reversed: invalid
+    size = torch.randint(0, 45, (B,), generator=g).to(torch.int32).to(dev)
+    check("random ends", begin, end, size)
+    check("whole store", torch.zeros(5, dtype=torch.int64, device=dev), torch.full((5,), n, device=dev), torch.arange(5, dtype=torch.int32, device=dev))
+    check("one range", begin[:1], begin[:1] + 1, size[:1])
+    # a store whose last base's first child begins at n: fixed[3] + rank == n
+    # needs every bit of prev[3] below `begin` set and fixed[3] = n - begin;
+    # made up, so only the two push4 forms are compared
+    nw = 7
+    n2 = 32 * nw
+    ones = torch.full((4, nw), -1, dtype=torch.int32, device=dev)
+    blocks = rank4_ops.build_rank_blocks(ones, rank_cum_ops.rank_cum_plain(ones).to(torch.int64))
+    sizes = torch.randint(1, 5, (n2,), generator=g).to(torch.int32).to(dev)
+    begin = torch.arange(n2 + 1, device=dev)
+    end = torch.full_like(begin, n2)
+    for f3 in (0, 5, n2 - 1, n2):
+        fixed = torch.tensor([0, 0, 0, f3, n2], device=dev)
+        args = (blocks, sizes, fixed, begin, end, torch.full_like(begin, 2, dtype=torch.int32))
+        got = rank4_ops.push4(*args)
+        require_equal(f"push4 pushed begin up to n, fixed[3]={f3}", got, rank4_ops.push4_plain(*args))
+    if not bool((got[0][:, 3] >= n2).any()):
+        raise AssertionError("push4: the made-up store never pushed a begin to n")
+
+
 def edge_checks(dev):
     """Small and ragged shapes: B not a multiple of the block, pos == 0,
     pos == n, pos == 32*nw, pos < 0, m == 0, m == depth, scan sizes around the
@@ -345,6 +432,7 @@ def edge_checks(dev):
     text[:3000] = torch.from_numpy(codes[:75].reshape(-1)).to(dev)
     d = ss.d
     check_rank_blocks("seqset", ss.prev_words, ss.prev_cum, d.rank_blocks, torch.arange(ss.n_entries + 1, device=dev))
+    push4_edges(dev, g, ss)
     entry = torch.arange(ss.n_entries, device=dev)
     for b in range(4):  # the entry's bit, from the block's word slot and from the stored word
         stored = (ss.prev_words[b, entry >> 5].to(torch.int64) >> (entry & 31)) & 1
@@ -515,6 +603,50 @@ def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, prob
     gather["distinct_sectors_gathered"] = int(torch.unique(idx >> 3).numel())
     gather["sector_bytes_ms"] = gather["sectors"] * SECTOR / PEAK_BYTES_PER_S * 1e3
 
+    # push4 as the main path calls it: the children of every find range.  A
+    # range asks for the 128-byte line of begin's four blocks, another when end
+    # lies in another block, its 20 bytes of input and 64 of output, and one
+    # sector of entry_sizes for every child that is not empty.  Beside it,
+    # unfused_ms: the form push4 had before this kernel (the rank4 and
+    # gather_sizes kernels and tensor code around them), on the same ranges.
+    r = SeqsetRanges(find_ranges.begin.contiguous(), find_ranges.end.contiguous(), find_ranges.size.contiguous())
+    R = r.begin.shape[0]
+    p4 = (blocks, d.entry_sizes, d.fixed, r.begin, r.end, r.size)
+    require_equal("push4 vs its unfused form", rank4_ops.push4(*p4), push4_unfused(d, r))
+    valid = r.begin < r.end
+    last_word = blocks.shape[0] * rank4_ops.BLOCK_WORDS - 1
+    two_lines = valid & ((r.begin >> 5).clamp(max=last_word) // rank4_ops.BLOCK_WORDS != (r.end >> 5).clamp(max=last_word) // rank4_ops.BLOCK_WORDS)
+    r4 = rank4_ops.rank4(blocks, torch.cat([r.begin, r.end])).to(torch.int64)
+    gathered = int((valid[:, None] & (r4[:R] < r4[R:])).sum())  # children not empty before the kick
+    lines = int(valid.sum()) + int(two_lines.sum())
+    fused = row(
+        "push4",
+        lambda: rank4_ops.push4(*p4),
+        lambda: rank4_ops.push4_plain(*p4),
+        R * (8 + 8 + 4) + R * 64 + min(lines * 4 * SECTOR, blocks_bytes) + min(gathered * 4, n * 4) + 40,
+        2 * R * 24 + R * 16,
+    )
+    fused["sectors"] = lines * 4 + gathered + R * (20 + 64) // SECTOR
+    fused["sectors_per_s"] = fused["sectors"] / fused["ms"] * 1e3
+    fused["children_not_empty"] = gathered
+    fused["unfused_ms"] = event_ms(lambda: push4_unfused(d, r), 20, stall=stall)
+    fused["unfused_call_ms"] = event_ms(lambda: push4_unfused(d, r), 20)
+    if breakdown:
+        fused["unfused_kernels_us"] = kernels_us(lambda: push4_unfused(d, r))
+    # and at the widths the beam wavefront calls it, where the time is the launch's
+    fused["ms_by_ranges"] = {
+        str(k): event_ms(lambda: rank4_ops.push4(*p4[:3], r.begin[:k], r.end[:k], r.size[:k]), 20, stall=stall)
+        for k in (512, 4096, 32768)
+    }
+    fused["call_ms_by_ranges"] = {
+        str(k): event_ms(lambda: rank4_ops.push4(*p4[:3], r.begin[:k], r.end[:k], r.size[:k]), 20)
+        for k in (512, 4096, 32768)
+    }
+    fused["unfused_call_ms_by_ranges"] = {
+        str(k): event_ms(lambda: push4_unfused(d, SeqsetRanges(r.begin[:k], r.end[:k], r.size[:k])), 20)
+        for k in (512, 4096, 32768)
+    }
+
     # chain_window as a probe_exact round calls it, twice: every lane at
     # full depth, and the per-lane lengths the bisection's third round tests.
     # The byte bound counts each input once (rows, lengths, the block table,
@@ -668,7 +800,7 @@ def rank_past_l2(dev, stall, breakdown=False):
 
 def main_path(dev, genome, codes, lengths, depth=DEPTH):
     """reads -> seqset -> readmap -> save/load -> find -> rank4 ->
-    rank4_tiled -> push4 -> probe_exact.  Returns (stage stats, what the
+    rank4_tiled -> push4 -> sizes_at -> probe_exact.  Returns (stage stats, what the
     later checks need)."""
     R = codes.shape[0]
     stats = {}
@@ -729,6 +861,12 @@ def main_path(dev, genome, codes, lengths, depth=DEPTH):
         raise AssertionError("rank4_tiled differs from rank4 on the find ranges' ends")
     del tiles, ranked_tiled
     (nb4, ne4), stats["push4_s"] = timed(lambda: d.push4(found), "push4")
+    # the children's first entries, through sizes_at (the gather_sizes kernel):
+    # after the kick, a child that is not empty begins at an entry long enough
+    # to hold the pushed base and the range's sequence
+    child_sizes, stats["sizes_at_s"] = timed(lambda: d.sizes_at(nb4), "sizes_at")
+    if not bool(((nb4 >= ne4) | (child_sizes > found.size[:, None])).all()):
+        raise AssertionError("push4: a child begins at an entry shorter than its sequence")
 
     text = torch.from_numpy(np.concatenate([genome, (3 - genome)[::-1]])).to(dev)
     G = genome.shape[0]
@@ -810,6 +948,264 @@ def check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, d
     return {"sampled_lanes": sample, "host_checked_windows": int(len(pos_h))}
 
 
+# ---------------------------------------------------------------------------
+# discovery: from the read store to records
+# ---------------------------------------------------------------------------
+
+DISCOVER_KERNELS = ("push4", "rank", "chain_window")
+DISCOVER_OPT = dict(min_alt_support=5)
+REGION = (0, 65536)  # held against the plain versions on a CPU copy of the store
+MIN_READS_OVER_SNP = 5
+# the least share of the well-covered planted SNPs that discovery must find
+MIN_SNP_SHARE = 0.99
+
+
+def run_discover(ss, reference, stage=None, **kw):
+    """One discover_variants call with every kernel's count set to 0 just
+    before it and read just after: (records, stats, seconds, launches)."""
+    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    stats = {}
+    records, seconds = timed(lambda: disc.discover_variants(ss, reference, opt=opt, stats=stats, **kw), stage)
+    return records, stats, seconds, {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def discover_phase(ss, reference):
+    """discover_variants over the whole genome on the card, cold (the
+    prescreen bitmap and the trunc tables are built and cached on the
+    seqset) and warm.  Fails if a kernel of the path was launched no time."""
+    out = {}
+    for run in ("cold", "warm"):
+        records, stats, seconds, launches = run_discover(ss, reference)
+        missing = [name for name in DISCOVER_KERNELS if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"discovery launched no {missing} kernel")
+        out[run] = {
+            "seconds": seconds,
+            "stage_s": stats["stage_s"],
+            "launches": launches,
+        }
+    out.update(
+        records=len(records),
+        prescreen_probed=stats["prescreen_probed"],
+        anchors_found=stats["anchors_found"],
+        anchors_truncated=stats["anchors_truncated"],
+        assemblies_truncated=stats["assemblies_truncated"],
+        beam_steps=stats.get("wave_steps", 0),
+        compactions=stats.get("wave_compactions", 0),
+        branch_retry_rescued=stats.get("branch_retry_rescued", 0),
+        memory_plan=stats["memory_plan"],
+    )
+    return records, out
+
+
+def key_of(r):
+    return (r["chrom"], r["pos"], r["ref"], r["alt"], r["support"], r["ref_support"])
+
+
+def discover_checks(dev, ss, reference, genome, records, snp, donor, starts, read_len, min_share=MIN_SNP_SHARE):
+    """(a) every record's ref allele is the genome's at its position; (b) the
+    planted SNPs that at least MIN_READS_OVER_SNP reads cover together with
+    min_anchor_ctx bases before and rejoin_k + 1 after are found, at
+    ``min_share`` of them or more; (c) over REGION the card and a CPU copy of
+    the store (every kernel's plain version) give identical records."""
+    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+    G = genome.shape[0]
+    code_of = {c: i for i, c in enumerate("ACGT")}
+    for r in records:
+        want = genome[r["pos"] - 1 : r["pos"] - 1 + len(r["ref"])]
+        if [code_of[c] for c in r["ref"]] != want.tolist():
+            raise AssertionError(f"record at {r['pos']}: ref allele {r['ref']} is not the genome's")
+    # reads that hold [p - min_anchor_ctx, p + rejoin_k + 1]
+    before, after = opt.min_anchor_ctx, opt.rejoin_k + 1
+    sorted_starts = np.sort(starts)
+    over = np.searchsorted(sorted_starts, snp - before, side="right") - np.searchsorted(sorted_starts, snp + after - read_len + 1, side="left")
+    covered = over >= MIN_READS_OVER_SNP
+    called = {(r["pos"] - 1, r["ref"], r["alt"]) for r in records}
+    found = np.array([(int(p), "ACGT"[genome[p]], "ACGT"[donor[p]]) in called for p in snp])
+    share = float(found[covered].mean())
+    result = {
+        "planted": int(len(snp)), "well_covered": int(covered.sum()), "found_of_well_covered": int(found[covered].sum()),
+        "share": share, "missed": int((covered & ~found).sum()), "found_of_all": int(found.sum()),
+    }
+    if share < min_share:
+        raise AssertionError(f"discovery found {share:.4f} of the well-covered planted SNPs, under {min_share}: {result}")
+    # (c) the same region on the card and on a CPU copy of the store
+    on_card, _, result["region_card_s"], launches = run_discover(ss, reference, region=REGION)
+    on_cpu = disc.discover_variants(ss.to("cpu"), reference, region=REGION, opt=opt)
+    if not on_card or list(map(key_of, on_card)) != list(map(key_of, on_cpu)):
+        raise AssertionError(f"discovery over {REGION}: {len(on_card)} records on the card, {len(on_cpu)} on the CPU copy, or they differ")
+    result.update(region=list(REGION), region_records=len(on_card), region_launches=launches)
+    return result
+
+
+class HeldEngine:
+    """A seqset's query engine whose push4 and push_front hold the kernel
+    under them against its plain version on the very tensors the caller
+    hands in, at every call; everything else is the engine's own.  ``held``
+    counts the calls by kernel and lane count."""
+
+    def __init__(self, d):
+        self._d = d
+        self.held = {"push4": {}, "rank": {}}
+
+    def __getattr__(self, name):
+        return getattr(self._d, name)
+
+    def _count(self, kernel, lanes):
+        self.held[kernel][lanes] = self.held[kernel].get(lanes, 0) + 1
+
+    def push4(self, r):
+        d = self._d
+        got = d.push4(r)
+        require_equal(
+            f"push4 in discovery, {r.begin.shape[0]} lanes", got,
+            rank4_ops.push4_plain(d.rank_blocks, d.entry_sizes, d.fixed, r.begin, r.end, r.size),
+        )
+        self._count("push4", r.begin.shape[0])
+        return got
+
+    def push_front(self, r, b):
+        d = self._d
+        b = b.to(torch.int64).contiguous()
+        require_equal(
+            f"rank in discovery, {b.shape[0]} lanes",
+            rank4_ops.rank(d.rank_blocks, b, r.begin.contiguous(), r.end.contiguous()),
+            (rank4_ops.rank_blocks_plain(d.rank_blocks, b, r.begin), rank4_ops.rank_blocks_plain(d.rank_blocks, b, r.end)),
+        )
+        self._count("rank", b.shape[0])
+        return d.push_front(r, b)
+
+
+def discover_kernel_holds(ss, reference, anchors_found=None):
+    """Every kernel of the discovery path against its plain version on the
+    inputs discovery gives it.  The whole-genome call is replayed stage by
+    stage through the package's own functions: the filter and every bisection
+    round hold chain_window at depth probe_ctx over all candidate lanes; the
+    anchor scan holds push4 on those lanes; the first beam group of each
+    orientation, seeded and driven to its end, holds rank on the seed and
+    push4 at every beam step, at the full and at every compacted width."""
+    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+    d, dev = ss.d, ss.device
+    held = HeldEngine(d)
+    G = len(reference.flat)
+    ref2_dev = torch.from_numpy(np.concatenate([reference.flat, (3 - reference.flat[::-1]).astype(np.uint8)])).to(dev)
+    stats = {}
+    hit_pos, pos, cap, ctx = disc._candidate_lanes(ss, ref2_dev, disc._segments(opt, 0, G, G), opt, stats)
+    win = probes._window_bases(ref2_dev, pos, opt.probe_ctx)
+    chains = []
+
+    def find(m):
+        args = (d.rank_blocks, d.entry_sizes, d.fixed, win, m.to(torch.int32).contiguous(), opt.probe_ctx)
+        got = rank4_ops.chain_window(*args)
+        require_equal(f"chain_window in discovery, chain {len(chains)}", got, rank4_ops.chain_window_plain(*args))
+        chains.append(float(m.float().mean()) if m.numel() else 0.0)
+        return got
+
+    seed = find(torch.full_like(pos, opt.min_anchor_ctx, dtype=torch.int32))
+    b2, e2, s2 = probes._probe_exact(d, pos, ctx, opt.probe_ctx, opt.min_anchor_ctx, seed, find)
+    n_raw, stacked = disc._anchor_scan_at(held, ref2_dev, pos, b2, e2, s2, opt.min_anchor_ctx, opt.min_branch_width, cap)
+    if anchors_found is not None and n_raw != anchors_found:
+        raise AssertionError(f"the replayed front end found {n_raw} anchors, discover_variants {anchors_found}")
+    live = stacked.cpu().numpy()
+    trunc = disc._trunc_tables(ss, opt.probe_ctx)
+    for rev_half in (False, True):
+        half = (live[0] >= G) == rev_half
+        c = disc._asm_start(held, tuple(col[half][: disc.WAVE_LANES] for col in live), opt, 2 * G if rev_half else G, ref2_dev)
+        if c is not None:
+            disc._drive(held, c, trunc, stats)
+    for kernel, calls in held.held.items():
+        if not calls:
+            raise AssertionError(f"the replayed discovery path never reached {kernel}")
+    return {
+        "lanes": int(pos.shape[0]), "anchors": n_raw, "chain_window_depth": opt.probe_ctx, "chain_window_mean_m": chains,
+        "push4_calls_by_lanes": held.held["push4"], "rank_calls_by_lanes": held.held["rank"],
+        "beam_steps": stats.get("wave_steps", 0), "compactions": stats.get("wave_compactions", 0),
+    }
+
+
+def small_genome_checks(dev):
+    """What the scaled workload, SNPs only, does not reach on the card: an
+    insertion, a deletion and a block substitution (a complex block, so the
+    batched affine DP of ops/align_dp.py runs) on a 6000-base genome at 30x,
+    discovered on the card and on a CPU copy of the store with identical
+    records; and the aligner alone on block pairs full of score ties, the
+    card's op lists against the CPU's."""
+    from biograph_tpu_torch.ops.align_dp import align_blocks_batch
+
+    rng = np.random.default_rng(SEED + 7)
+    n = 6000
+    ref = rng.integers(0, 4, n, dtype=np.uint8)
+    block = (ref[[3300, 3303, 3306]] + 1) % 4  # three bases for seven, differing at both ends
+    donor = np.concatenate([
+        ref[:700], [(ref[700] + 1) % 4], ref[701:1501], rng.integers(0, 4, 5, dtype=np.uint8),
+        ref[1501:2400], ref[2407:3300], block, ref[3307:],
+    ]).astype(np.uint8)
+    starts = rng.integers(0, len(donor) - 40, len(donor) * 30 // 40)
+    codes = donor[starts[:, None] + np.arange(40)]
+    half = len(starts) // 2
+    codes[:half] = (3 - codes[:half])[:, ::-1]
+    ss = build_seqset(codes, np.full(len(starts), 40, np.int32), device=dev)
+    reference = reference_from_numpy(ref, np.zeros(n, bool), [("chr1", 0, n)])
+    on_card = disc.discover_variants(ss, reference)
+    on_cpu = disc.discover_variants(ss.to("cpu"), reference)
+    if list(map(key_of, on_card)) != list(map(key_of, on_cpu)):
+        raise AssertionError(f"small genome: {len(on_card)} records on the card, {len(on_cpu)} on the CPU copy, or they differ")
+    kinds = {len(r["alt"]) - len(r["ref"]) for r in on_card}
+    in_block = [r for r in on_card if 3295 <= r["pos"] <= 3310]
+    if not {0, 5, -7} <= kinds or not in_block:
+        raise AssertionError(f"small genome: planted events not all found: length changes {sorted(kinds)}, {len(in_block)} records in the block")
+    refs, alts = [], []
+    for _ in range(64):  # homopolymer runs and their stretched or cut copies: a gap has many equally cheap places
+        runs = [np.full(rng.integers(1, 9), rng.integers(0, 4), np.uint8) for _ in range(rng.integers(1, 12))]
+        refs.append(np.concatenate(runs))
+        alts.append(np.concatenate([np.resize(r, max(1, len(r) + rng.integers(-3, 4))) for r in runs if rng.random() > 0.15] or [runs[0]]))
+    if align_blocks_batch(refs, alts, dev) != align_blocks_batch(refs, alts, "cpu"):
+        raise AssertionError("align_blocks_batch: the card's op lists differ from the CPU's")
+    return {"records": len(on_card), "records_in_the_block": len(in_block), "length_changes": sorted(kinds), "aligned_pairs": len(refs)}
+
+
+def beam_step_profile(ss, reference, steps=8):
+    """One beam group of the warm discovery, stepped by hand under
+    torch.profiler: kernel launches and device microseconds a beam step, and
+    the step's wall time."""
+    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+    d, dev = ss.d, ss.device
+    G = len(reference.flat)
+    ref2_dev = torch.from_numpy(np.concatenate([reference.flat, (3 - reference.flat[::-1]).astype(np.uint8)])).to(dev)
+    stats = {"anchors_found": 0, "anchors_truncated": 0}
+    parts, _ = disc._find_anchors(ss, ref2_dev, disc._segments(opt, 0, G, G), opt, stats, disc._StageClock(dev, {}), G)
+    anchors = tuple(c[: disc.WAVE_LANES] for c in parts[False])
+    trunc = disc._trunc_tables(ss, opt.probe_ctx)
+    c = disc._asm_start(d, anchors, opt, G, ref2_dev)
+
+    def step():
+        c["st"] = disc._wavefront_body(d, c["packed"], *trunc, c["n_packed"], c["st"], c["step"], c["MAXP"], c["k"], c["min_w"], c["probe_ctx"], c["pos_bits"])
+        c["step"] += 1
+
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if _device_us(e)]
+    kernels.sort(key=_device_us, reverse=True)
+    return {
+        "lanes": int(c["st"]["begin"].shape[0]),
+        "launches_a_step": sum(e.count for e in kernels) / steps,
+        "device_us_a_step": sum(_device_us(e) for e in kernels) / steps,
+        "wall_us_a_step_under_the_profiler": seconds / steps * 1e6,
+        "wall_us_a_step": event_ms(step, steps, warm=0) * 1e3,
+        "top": [[e.key.split("(")[0][:60], e.count / steps, _device_us(e) / steps] for e in kernels[:6]],
+    }
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -837,7 +1233,7 @@ def main():
     _, seconds = timed(lambda: edge_checks(dev))
     say(phase="edge_checks", ok=True, seconds=seconds)
 
-    genome, codes, lengths = make_workload(GENOME, READS, SNPS, READ_LEN)
+    genome, codes, lengths, snp, donor, starts = simulate(GENOME, READS, SNPS, READ_LEN)
     for fn in WRAPPERS.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -854,11 +1250,25 @@ def main():
     checks, seconds = timed(lambda: check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed))
     say(phase="checks", ok=True, seconds=seconds, **checks)
 
+    # variant discovery on the store just built and loaded: the counts of its
+    # kernels are set to 0 before each call and read after it
+    reference = reference_from_numpy(genome, np.zeros(GENOME, bool), [("chr1", 0, GENOME)])
+    records, found_by = discover_phase(ss, reference)
+    say(phase="discover", card=card, **found_by)
+    checks, seconds = timed(lambda: discover_checks(dev, ss, reference, genome, records, snp, donor, starts, READ_LEN))
+    say(phase="discover_checks", ok=True, seconds=seconds, **checks)
+    holds, seconds = timed(lambda: discover_kernel_holds(ss, reference, found_by["anchors_found"]))
+    say(phase="discover_kernel_holds", ok=True, max_abs_err=0, seconds=seconds, **holds)
+    small, seconds = timed(lambda: small_genome_checks(dev))
+    say(phase="small_genome_checks", ok=True, seconds=seconds, **small)
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
     breakdown = profile_to is not None
     rows = kernel_table(ss, launches, found, text, probe_pos, probe_m, probe_m_mixed, breakdown)
+    for r in rows:
+        r["launches_discover"] = found_by["warm"]["launches"][r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:
@@ -866,23 +1276,29 @@ def main():
         # the kernels warm, and once with each stage under torch.profiler:
         # [kernel name, calls, device ms] for the heaviest kernels, and the
         # share of the warm stage time in which the device sat idle
-        del ss, rm, found, ranked, pushed, text, probed
+        del rm, found, ranked, pushed, text, probed
         warm, _ = main_path(dev, genome, codes, lengths)
         PROFILE = {}
         main_path(dev, genome, codes, lengths)
+        run_discover(ss, reference, stage="discover")
+        PROFILE["discover"].update(
+            cold_s=found_by["cold"]["seconds"], warm_s=found_by["warm"]["seconds"],
+            stage_s_warm=found_by["warm"]["stage_s"], beam_step=beam_step_profile(ss, reference),
+        )
         for stage, seen in PROFILE.items():
-            seen["cold_s"] = stats[stage + "_s"]
-            seen["warm_s"] = warm[stage + "_s"]
+            seen.setdefault("cold_s", stats.get(stage + "_s"))
+            seen.setdefault("warm_s", warm.get(stage + "_s"))
             seen["device_idle_share"] = max(0.0, 1 - seen["device_busy_s"] / seen["warm_s"])
         with open(profile_to, "w") as f:
             json.dump({"card": card, "stages": PROFILE}, f, indent=1)
         say(phase="profile", written=profile_to, card=card,
-            stages={k: {x: v[x] for x in ("cold_s", "warm_s", "device_busy_s", "device_idle_share", "launches")} for k, v in PROFILE.items()})
+            stages={k: {x: v[x] for x in ("cold_s", "warm_s", "device_busy_s", "device_idle_share", "launches")} for k, v in PROFILE.items()},
+            beam_step=PROFILE["discover"]["beam_step"])
         PROFILE = None
     say(total_s=time.perf_counter() - t_start)
     print(card, flush=True)
     say(kernels=rows)
-    say(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1})
+    say(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
 
 
 if __name__ == "__main__":

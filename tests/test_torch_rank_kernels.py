@@ -751,3 +751,134 @@ def test_rank4_tiled_bucketing_kernels_any_shape_any_order(nw, B, seed, smem_til
     ranks, words, cum = _check_bucketing(nw, pos, seed, smem_tiles)
     want = np.asarray(jrank4.rank4_xla(jnp.asarray(words), jnp.asarray(cum), jnp.asarray(pos)))
     np.testing.assert_array_equal(ranks, want)
+
+
+# ---------------------------------------------------------------------------
+# push4: the four children of a range in one launch
+# ---------------------------------------------------------------------------
+
+
+def _push4_kernel_in_numpy(blocks, sizes, fixed, begin, end, size):
+    """csrc/push4.cu thread by thread on the host: thread t answers base
+    t % 4 of range t / 4; an invalid range leaves early, the second rank
+    reuses the first one's sector when both ends share a block, and the size
+    is gathered only when the child is not empty.  Returns (begin4, end4,
+    sizes gathered, ranges whose ends shared a block)."""
+    sectors = blocks.numpy().view(np.uint64).reshape(-1, 4)
+    last_word = blocks.shape[0] * trank4.BLOCK_WORDS - 1
+    n, B = len(sizes), len(begin)
+    begin4, end4 = np.zeros(4 * B, np.int64), np.zeros(4 * B, np.int64)
+    gathers = shared = 0
+    for t in range(4 * B):
+        q, b = t >> 2, t & 3
+        s, e = int(begin[q]), int(end[q])
+        if s >= e:
+            begin4[t] = end4[t] = s
+            continue
+        k0, r0 = _locate_in_blocks_numpy(s, last_word)
+        k1, r1 = _locate_in_blocks_numpy(e, last_word)
+        sector0 = sectors[4 * k0 + b]
+        sector1 = sector0
+        if k1 != k0:
+            sector1 = sectors[4 * k1 + b]
+        else:
+            shared += b == 0
+        nb = int(fixed[b]) + _rank_in_block_numpy(sector0, r0)
+        ne = int(fixed[b]) + _rank_in_block_numpy(sector1, r1)
+        if nb < ne:
+            gathers += 1
+            nb += int(sizes[min(nb, n - 1)]) < int(size[q]) + 1
+        begin4[t], end4[t] = nb, ne
+    return begin4.reshape(B, 4), end4.reshape(B, 4), gathers, shared
+
+
+def _push4_ranges(kind, n, rng):
+    """(begin, end, size) test ranges over a store of n entries."""
+    if kind == "entries":  # every entry with the next few: ends mostly in one block
+        begin = np.arange(n + 1)
+        end = np.minimum(begin + rng.integers(0, 9, n + 1), n)
+    elif kind == "wide":  # ends far apart, some reversed (invalid), some at n
+        begin = rng.integers(0, n + 1, 301)
+        end = rng.integers(0, n + 1, 301)
+        end[:20] = n
+    else:  # the whole store and empty ranges
+        begin = np.array([0, 0, n, 5, 5])
+        end = np.array([n, 0, n, 5, 4])
+    size = rng.integers(0, 34, len(begin)).astype(np.int32)  # entries are 30 long: the kick on and off
+    return begin.astype(np.int64), end.astype(np.int64), size
+
+
+@pytest.mark.parametrize("kind", ["entries", "wide", "edges"])
+def test_push4_plain_and_replayed_kernel_vs_jax_and_push_front(store, kind):
+    ss, _, _, port, _ = store
+    begin, end, size = _push4_ranges(kind, ss.n_entries, np.random.default_rng(len(kind)))
+    tb, te, tsz = torch.from_numpy(begin), torch.from_numpy(end), torch.from_numpy(size)
+    args = (port["blocks"], port["entry_sizes"], port["fixed"], tb, te, tsz)
+    got = trank4.push4_plain(*args)
+    assert [g.dtype for g in got] == [torch.int64, torch.int64] and got[0].shape == (len(begin), 4)
+    from biograph_tpu.index.seqset import SeqsetRanges as JRanges
+
+    want = ss.d.push4(JRanges(jnp.asarray(begin), jnp.asarray(end), jnp.asarray(size)), use_kernel=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(trank4.push4(*args), got):  # CPU tensors -> plain version
+        assert torch.equal(g, w)
+    for b in range(4):
+        nb, ne, _ = trank4.push_front_plain(port["prev_words"], port["prev_cum"], port["entry_sizes"], port["fixed"], tb, te, tsz, torch.full_like(tb, b))
+        assert torch.equal(got[0][:, b], nb) and torch.equal(got[1][:, b], ne)
+    begin4, end4, gathers, shared = _push4_kernel_in_numpy(port["blocks"], port["entry_sizes"].numpy(), port["fixed"].numpy(), begin, end, size)
+    np.testing.assert_array_equal(begin4, got[0].numpy())
+    np.testing.assert_array_equal(end4, got[1].numpy())
+    valid = begin < end
+    if kind != "edges":  # (the whole store has four children)
+        assert 0 < gathers < 4 * valid.sum()  # the shortcut was taken: some child was empty
+    if kind == "entries":
+        assert 0 < shared < valid.sum()  # ends in one block, and ends in two
+
+
+def test_push4_clamps_a_pushed_begin_that_reaches_n():
+    """A made-up store whose pushed begin reaches n and passes it: the size
+    is read at n - 1, by the plain version and by the kernel's loop."""
+    nw = 7
+    n = 32 * nw
+    ones = torch.full((4, nw), -1, dtype=torch.int32)
+    cum = torch.arange(nw, dtype=torch.int64)[None, :].expand(4, -1) * 32
+    blocks = trank4.build_rank_blocks(ones, cum.contiguous())
+    sizes = torch.from_numpy(np.random.default_rng(3).integers(1, 5, n).astype(np.int32))
+    begin = torch.arange(n + 1)
+    end = torch.full_like(begin, n)
+    size = torch.full((n + 1,), 2, dtype=torch.int32)
+    for f3 in (0, 5, n - 1, n):
+        fixed = torch.tensor([0, 0, 0, f3, n])
+        got = trank4.push4_plain(blocks, sizes, fixed, begin, end, size)
+        replay = _push4_kernel_in_numpy(blocks, sizes.numpy(), fixed.numpy(), begin.numpy(), end.numpy(), size.numpy())
+        np.testing.assert_array_equal(replay[0], got[0].numpy())
+        np.testing.assert_array_equal(replay[1], got[1].numpy())
+    assert int(got[0][:, 3].max()) >= n
+
+
+def test_push4_rejects_what_the_kernel_does_not_take(store):
+    _, _, _, port, _ = store
+    blocks, sizes, fixed = port["blocks"], port["entry_sizes"], port["fixed"]
+    b = torch.zeros(4, dtype=torch.int64)
+    s = torch.zeros(4, dtype=torch.int32)
+    for bad in (
+        (port["prev_words"], sizes, fixed, b, b, s),  # the structure as stored is not the block table
+        (blocks, sizes.to(torch.int64), fixed, b, b, s),
+        (blocks, sizes, fixed[:4], b, b, s),
+        (blocks, sizes, fixed.to(torch.int32), b, b, s),
+        (blocks, sizes, fixed, b.to(torch.int32), b, s),
+        (blocks, sizes, fixed, b, b[:3], s),
+        (blocks, sizes, fixed, b, b, s.to(torch.int64)),
+        (blocks, sizes, fixed, b[None], b[None], s[None]),
+    ):
+        with pytest.raises(TypeError):
+            trank4.push4(*bad)
+    with pytest.raises(ValueError, match="empty"):
+        trank4.push4(blocks, sizes[:0], fixed, b, b, s)
+    # a CPU/CUDA mix launches nothing and takes no plain version
+    with pytest.raises(ValueError, match="unsupported device"):
+        trank4.push4(blocks.to("meta"), sizes, fixed, b, b, s)
+    with pytest.raises(ValueError):
+        trank4.push4(blocks, sizes, fixed, b.to("meta"), b.to("meta"), s.to("meta"))
+    assert trank4.push4.launches == 0  # nothing launches on the CPU

@@ -245,3 +245,28 @@ def test_readmap_queries(world):
         _eq(g, w)
     assert (tr.min_read_len, tr.max_read_len) == (jr.min_read_len, jr.max_read_len)
     assert tr.get_pair_stats() == jr.get_pair_stats()
+
+
+@pytest.mark.parametrize("c", [1, 12, 25, 41])
+def test_trunc_tables_and_trunc_gather(world, c):
+    """The constant-threshold widen tables and the two-gather truncation on
+    them, against the JAX package's; the tables hang on the seqset instance."""
+    from biograph_tpu.variants import discover as jdisc
+    from biograph_tpu_torch.variants import discover as tdisc
+
+    js, ts = world["js"], world["ts"]
+    jp, jn = jdisc._trunc_tables(js, c)
+    tp, tn = tdisc._trunc_tables(ts, c)
+    _eq(tp, jp)
+    _eq(tn, jn)
+    assert tp.dtype == tn.dtype == torch.int64
+    assert ts.__dict__["_trunc_cache"][c][0] is tp and tdisc._trunc_tables(ts, c)[0] is tp
+    assert not hasattr(tdisc, "_TRUNC_CACHE")
+    rng = np.random.default_rng(c)
+    n = js.n_entries
+    begin = np.concatenate([rng.integers(0, n, 300), [0, n - 1, n, n + 3, -2]]).astype(np.int64)
+    end = np.concatenate([begin[:300] + rng.integers(0, 40, 300), [n, n, n, n + 5, 3]]).astype(np.int64)
+    want = js.d.trunc_gather(jp, jn, jnp.asarray(begin), jnp.asarray(end))
+    got = ts.d.trunc_gather(tp, tn, torch.from_numpy(begin), torch.from_numpy(end))
+    for g, w in zip(got, want):
+        _eq(g, w)

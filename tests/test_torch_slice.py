@@ -31,6 +31,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G, R, DEPTH = 1000, 220, 20
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side of these tests is many small tensor operations; run
+    beside other test workers, more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def slice_run(tmp_path_factory):
     """Both packages run the slice on the same FASTQ file and save."""
@@ -149,7 +159,8 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
-    for required in ("biograph_tpu_torch.build.seqset_build", "biograph_tpu_torch.ops.rank4", "biograph_tpu_torch.index.probes"):
+    for required in ("biograph_tpu_torch.build.seqset_build", "biograph_tpu_torch.ops.rank4", "biograph_tpu_torch.index.probes",
+                     "biograph_tpu_torch.variants.discover", "biograph_tpu_torch.ops.align_dp", "biograph_tpu_torch.index.reference"):
         assert required in mods
     code = (
         "import importlib, sys\n"
@@ -190,8 +201,56 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
     import chip_smoke
 
     dev = torch.device("cpu")
-    genome, codes, lengths = chip_smoke.make_workload(8000, 600, 16, 100)
+    genome, codes, lengths, snp, donor, starts = chip_smoke.simulate(8000, 600, 16, 100)
+    assert all(np.array_equal(a, b) for a, b in zip(chip_smoke.make_workload(8000, 600, 16, 100), (genome, codes, lengths)))
     stats, (ss, rm, found, ranked, pushed, text, probed) = chip_smoke.main_path(dev, genome, codes, lengths, depth=16)
     assert stats["n_entries"] == ss.n_entries > 8000 and stats["probe_positions"] == 16000
     out = chip_smoke.check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, depth=16, sample=200, host_sample=60)
     assert out == {"sampled_lanes": 200, "host_checked_windows": 60}
+    # discovery on the same store, held to the genome, the planted SNPs and a region
+    reference = chip_smoke.reference_from_numpy(genome, np.zeros(8000, bool), [("chr1", 0, 8000)])
+    monkeypatch.setattr(chip_smoke, "REGION", (0, 4096))
+    records, dstats, _, launches = chip_smoke.run_discover(ss, reference)
+    assert set(launches) == set(chip_smoke.WRAPPERS) and not any(launches.values())  # CPU tensors: the plain versions
+    assert set(dstats["stage_s"]) == {"probe_filter", "probe_exact", "anchors", "wavefront", "extract"}
+    found = chip_smoke.discover_checks(dev, ss, reference, genome, records, snp, donor, starts, 100)
+    assert found["planted"] == 16 and found["share"] == 1.0 and found["well_covered"] > 0 and found["region_records"] > 0
+    bad = [dict(records[0], ref="ACGT"[("ACGT".index(records[0]["ref"][0]) + 1) % 4] + records[0]["ref"][1:])] + records[1:]
+    with pytest.raises(AssertionError, match="not the genome's"):
+        chip_smoke.discover_checks(dev, ss, reference, genome, bad, snp, donor, starts, 100)
+    with pytest.raises(AssertionError, match="well-covered planted SNPs"):
+        chip_smoke.discover_checks(dev, ss, reference, genome, records[:1], snp, donor, starts, 100)
+    holds = chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"])
+    assert holds["anchors"] == dstats["anchors_found"] > 0 and len(holds["chain_window_mean_m"]) == 4
+    assert holds["rank_calls_by_lanes"] and sum(holds["push4_calls_by_lanes"].values()) == 1 + holds["beam_steps"]
+    with pytest.raises(AssertionError, match="the replayed front end found"):
+        chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"] + 1)
+    small = chip_smoke.small_genome_checks(dev)
+    assert {0, 5, -7} <= set(small["length_changes"]) and small["records_in_the_block"] >= 2  # the block went through the aligner
+
+
+def test_reads_to_records_each_package_on_its_own_store():
+    """The slice as a whole: each package builds its own store from the same
+    reads and discovers, without a readmap, the same records."""
+    from biograph_tpu.index.reference import Contig
+    from biograph_tpu.variants.discover import discover_variants as jax_discover
+    from biograph_tpu_torch.convert import reference_from_numpy
+    from biograph_tpu_torch.variants.discover import discover_variants
+
+    rng = np.random.default_rng(33)
+    n = 3000
+    ref = rng.integers(0, 4, n).astype(np.uint8)
+    donor = np.concatenate([ref[:800], [(ref[800] + 1) % 4], ref[801:1500], rng.integers(0, 4, 6).astype(np.uint8), ref[1500:2200], ref[2209:]]).astype(np.uint8)
+    starts = rng.integers(0, len(donor) - 40, 1800)
+    codes = donor[starts[:, None] + np.arange(40)]
+    codes[:900] = (3 - codes[:900])[:, ::-1]
+    lengths = np.full(1800, 40, np.int32)
+
+    class JRef:
+        flat, is_n, contigs = ref, np.zeros(n, bool), [Contig(name="chr1", start=0, length=n)]
+
+    want = jax_discover(jax_build_seqset(codes, lengths), JRef())
+    got = discover_variants(build_seqset(codes, lengths, device="cpu"), reference_from_numpy(ref, np.zeros(n, bool), [("chr1", 0, n)]))
+    keys = ("chrom", "pos", "ref", "alt", "support", "ref_support")
+    assert [tuple(r[k] for k in keys) for r in got] == [tuple(r[k] for k in keys) for r in want]
+    assert {len(r["alt"]) - len(r["ref"]) for r in got} == {0, 6, -9}
