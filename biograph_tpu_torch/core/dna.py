@@ -15,7 +15,9 @@ Representation: torch has no arithmetic on ``uint32``, so packed words are
 producer masks with ``& 0xFFFFFFFF``).  Signed comparison of such values is
 unsigned comparison of the words.  ``u32_to_i32`` / ``i32_to_u32`` convert
 to and from the bit-reinterpreted ``int32`` form that the rank structure
-stores.  The k-mer helpers are not ported yet.
+stores.  k-mers are ``torch.int64`` too, first base in the most significant
+bits: k <= 31 fits in 62 bits, so no k-mer reaches the sign bit (torch has
+no shifts on ``uint64``).
 """
 
 from __future__ import annotations
@@ -137,3 +139,62 @@ def prefix_mask_words(length, W: int, device=None) -> torch.Tensor:
     shift = 2 * (BASES_PER_WORD - inword)
     # the top 2*inword bits set; inword == 0 shifts everything out
     return ((MASK32 >> shift) << shift) & MASK32
+
+
+# ---------------------------------------------------------------------------
+# k-mers (int64, appended at the least-significant end)
+# ---------------------------------------------------------------------------
+
+MAX_K = 31  # 2k bits below the int64 sign bit
+
+
+def kmer_mask(k: int) -> int:
+    return (1 << (2 * k)) - 1
+
+
+def _check_k(k: int) -> None:
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"k-mers are int64 here: 0 < k <= {MAX_K}, not {k}")
+
+
+def kmers_from_codes(codes: torch.Tensor, lengths, k: int):
+    """All k-mers of each padded row.
+
+    codes: [R, L] uint8; lengths: [R]; returns (kmers int64 [R, L-k+1],
+    valid bool [R, L-k+1]), first base in the most significant bits."""
+    _check_k(k)
+    R, L = codes.shape
+    Wn = L - k + 1
+    dev = codes.device
+    if Wn <= 0:
+        return (
+            torch.zeros((R, 0), dtype=torch.int64, device=dev),
+            torch.zeros((R, 0), dtype=torch.bool, device=dev),
+        )
+    acc = torch.zeros((R, Wn), dtype=torch.int64, device=dev)
+    for i in range(k):
+        acc = (acc << 2) | codes[:, i : i + Wn].to(torch.int64)
+    lengths = torch.as_tensor(lengths, device=dev)
+    valid = torch.arange(Wn, device=dev)[None, :] + k <= lengths[:, None]
+    return acc, valid
+
+
+def revcomp_kmer(kmers: torch.Tensor, k: int) -> torch.Tensor:
+    """Reverse complement of packed k-mers."""
+    _check_k(k)
+    out = torch.zeros_like(kmers)
+    for i in range(k):
+        out = (out << 2) | (3 - ((kmers >> (2 * i)) & 3))
+    return out
+
+
+def canonicalize_kmers(kmers: torch.Tensor, k: int):
+    """(canonical kmer, was_forward): the smaller of a k-mer and its reverse
+    complement; a palindrome counts as forward."""
+    rc = revcomp_kmer(kmers, k)
+    fwd = kmers <= rc
+    return torch.where(fwd, kmers, rc), fwd
+
+
+def kmer_to_seq(kmer: int, k: int) -> str:
+    return "".join("ACGT"[(int(kmer) >> (2 * (k - 1 - i))) & 3] for i in range(k))

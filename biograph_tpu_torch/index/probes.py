@@ -13,7 +13,9 @@ chain.
 ``find_window`` / ``probe_exact`` are the plain path (a loop of push_front
 steps); ``find_window_auto`` / ``probe_exact_kernel`` run each chain as one
 launch of the ``chain_window`` kernel when the seqset is on the card.
-``probe_ranges``, the walk variants and the hash probes are not ported yet.
+``probe_ranges`` is the restart chain: a loop of push_front steps, each one
+launch of the ``rank`` kernel on the card.  The walk variants and the hash
+probes are not ported yet.
 
 ``text`` is a uint8 code tensor (a doubled fwd++rc reference, or flattened
 query rows); ``seg_lo`` (scalar or per-lane) clips each window's left edge.
@@ -21,6 +23,7 @@ query rows); ``seg_lo`` (scalar or per-lane) clips each window's left edge.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from biograph_tpu_torch.index.seqset import SeqsetRanges
@@ -48,6 +51,38 @@ def _start(d, P: int):
         torch.full((P,), d.n_entries, dtype=torch.int64, device=dev),
         torch.zeros(P, dtype=torch.int32, device=dev),
     )
+
+
+def probe_ranges(d, text, p0: int, seg_lo, P: int, depth: int):
+    """Probe positions p0..p0+P-1 with one lockstep chain that restarts on
+    mismatch: the range of the lone base when a push empties the range.
+    Returns (begin, end, size, restarted); a restarted lane may
+    under-estimate its longest window."""
+    n2 = text.shape[0]
+    pos = p0 + torch.arange(P, dtype=torch.int64, device=d.device)
+    w0 = torch.clamp(pos - seg_lo + 1, max=depth).to(torch.int32)
+    begin, end, size = _start(d, P)
+    restarted = torch.zeros(P, dtype=torch.bool, device=d.device)
+    for s in range(depth):
+        idx = (pos - (depth - 1) + s).clamp(0, n2 - 1)
+        b = (3 - text[idx]).to(torch.int64)
+        started = s >= (depth - w0)
+        r2 = d.push_front(SeqsetRanges(begin, end, size), b)
+        ok = r2.begin < r2.end
+        # restart: the range of the lone base b is [fixed[b], fixed[b+1])
+        nb = torch.where(ok, r2.begin, d.fixed[b])
+        ne = torch.where(ok, r2.end, d.fixed[b + 1])
+        nsize = torch.where(ok, r2.size, 1)
+        restarted = restarted | (started & ~ok & (size > 0))
+        begin = torch.where(started, nb, begin)
+        end = torch.where(started, ne, end)
+        size = torch.where(started, nsize, size)
+    return begin, end, size, restarted
+
+
+def fetch_mask(mask: torch.Tensor) -> np.ndarray:
+    """A device bool mask as a host numpy bool array."""
+    return mask.cpu().numpy().astype(bool, copy=False)
 
 
 def find_window(d, text, pos, m, depth: int):

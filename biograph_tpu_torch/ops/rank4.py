@@ -625,6 +625,33 @@ def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):
     win uint8 [P, depth] (``probes._window_bases``); m int32 [P] per-lane
     window length; fixed int64 [5].  Returns (begin int64 [P], end int64
     [P], size int32 [P]): the contract of ``probes.find_window``."""
+    return _chain(chain_window, blocks, entry_sizes, fixed, win, m, depth)
+
+
+chain_window.launches = 0
+
+
+def contig_windows(text: torch.Tensor, depth: int) -> torch.Tensor:
+    """Complemented window rows for the contiguous positions [0, P):
+    win[j, s] = 3 - text[j - depth + 1 + s], reading 0 (so pushing 3) left
+    of the text.  uint8 [P, depth]."""
+    P = text.shape[0]
+    padded = torch.cat([text.new_zeros(depth - 1), text])
+    return (3 - padded.unfold(0, depth, 1)[:P]).to(torch.uint8).contiguous()
+
+
+def chain_fixed(blocks, entry_sizes, fixed, text, depth: int):
+    """(begin, end, size) of the depth-length window ending at every text
+    position: the ``chain_window`` kernel over the contiguous windows, one
+    launch, counted in ``chain_fixed.launches`` alone.  Positions p <
+    depth-1 read a zero halo: callers mask them."""
+    m = torch.full((text.shape[0],), depth, dtype=torch.int32, device=text.device)
+    return _chain(chain_fixed, blocks, entry_sizes, fixed, contig_windows(text, depth), m, depth)
+
+
+def _chain(entry, blocks, entry_sizes, fixed, win, m, depth: int):
+    """The chain_window kernel behind both entries: its plain version on CPU
+    tensors, else one launch, counted in ``entry.launches``."""
     _check_blocks("chain_window", blocks)
     if (
         win.dtype != torch.uint8
@@ -659,27 +686,8 @@ def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):
         _build.ptr(win), _build.ptr(m), _build.ptr(begin), _build.ptr(end),
         _build.ptr(size), blocks.shape[0], entry_sizes.shape[0], P, depth,
     )
-    chain_window.launches += 1
+    entry.launches += 1
     return begin, end, size
 
 
-chain_window.launches = 0
-
-
-def contig_windows(text: torch.Tensor, depth: int) -> torch.Tensor:
-    """Complemented window rows for the contiguous positions [0, P):
-    win[j, s] = 3 - text[j - depth + 1 + s], reading 0 (so pushing 3) left
-    of the text.  uint8 [P, depth]."""
-    P = text.shape[0]
-    padded = torch.cat([text.new_zeros(depth - 1), text])
-    return (3 - padded.unfold(0, depth, 1)[:P]).to(torch.uint8).contiguous()
-
-
-def chain_fixed(blocks, entry_sizes, fixed, text, depth: int):
-    """(begin, end, size) of the depth-length window ending at every text
-    position.  Positions p < depth-1 read a zero halo: callers mask them."""
-    P = text.shape[0]
-    m = torch.full((P,), depth, dtype=torch.int32, device=text.device)
-    return chain_window(
-        blocks, entry_sizes, fixed, contig_windows(text, depth), m, depth
-    )
+chain_fixed.launches = 0

@@ -1,7 +1,7 @@
 """Wavefront assembly along the reference: the discovery engine (torch).
 
 Counterpart of ``biograph_tpu/variants/discover.py`` for the path from the
-read store to variant records without a readmap: instead of one
+read store (and, where given, the readmap) to variant records: instead of one
 pointer-chasing path walk at a time, a *beam of frontier lanes* advances
 through the seqset in lockstep, every step a batch of rank queries.
 
@@ -19,26 +19,34 @@ Stages:
   4. wavefront     - beam search: each step pushes 4 candidate bases a lane
                      (push4), keeps the child its policy ranks, truncates to
                      probe_ctx, and tests rejoin against a span k-mer table
-  5. variants      - prefix/suffix trimming and the affine DP of
+  5. scoring       - with a readmap: each assembly's read coverage along its
+                     alt path and its reference span (``score_assemblies``
+                     over ``Readmap.coverage``), the min_alt_support
+                     filter, and the pair gate (``pair_gate_assemblies``:
+                     long alt paths need mate pairs placed around them by
+                     ``variants/align.py``)
+  6. variants      - prefix/suffix trimming and the affine DP of
                      ``ops/align_dp.py`` -> SNP/ins/del records,
                      left-normalized
+  7. output        - ``write_discovery_vcf`` (``io/vcf.py``) and
+                     ``write_assembly_csv``
 
 On the card the seqset work goes through the kernels of ``ops/rank4.py``
 (``rank`` in the seed's push_front, ``push4`` in the anchor scan and every
-beam step, ``chain_window`` in the filter and the bisection); on CPU tensors
-the same code runs on their plain versions.  The front end is the JAX
-package's accelerator route (``find_window_auto`` + ``probe_exact`` on the
-chain kernel over every prescreened lane); its CPU route (the rolling-hash
-filter and the push4 pre-gate) gives the same anchors and waits for the
-readmap slice.
+beam step, ``chain_window`` in the filter and the bisection, and in
+coverage where its routes need it); on CPU tensors the same code runs on
+their plain versions.  The front end is the JAX package's accelerator route
+(``find_window_auto`` + ``probe_exact`` on the chain kernel over every
+prescreened lane); its CPU route (the rolling-hash filter and the push4
+pre-gate) gives the same anchors.  Scoring takes the JAX package's
+accelerator form, one padded coverage batch, on every device.
 
 Not ported yet, each raising ``NotImplementedError`` where a call would need
-it: scoring and the pair gate (``readmap=``; they need
-``Readmap.coverage``), the dense front end for ``min_anchor_ctx < 12``
-(``probes.probe_ranges``), in-loop truncation without the trunc tables
-(``ops/ltsearch.py``), the sharded engine, and VCF writing (``io/vcf.py``).
-The JAX package's block, chunk, interleaved and whole-device wavefront
-dispatch loops are replaced by one host loop with done-lane compaction.
+it: the dense front end for ``min_anchor_ctx < 12`` (the restart masks of
+``discover.py``'s non-prescreen route), in-loop truncation without the trunc
+tables (``ops/ltsearch.py``), and the sharded engine.  The JAX package's
+block, chunk, interleaved and whole-device wavefront dispatch loops are
+replaced by one host loop with done-lane compaction.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 
 from biograph_tpu_torch.core import dna
 from biograph_tpu_torch.index import probes
+from biograph_tpu_torch.index.readmap import Readmap
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops.align_dp import align_blocks_batch
 
@@ -943,30 +952,33 @@ def discover_variants(
     reference: an ``index.reference.Reference`` (``flat`` codes and
     ``contigs``).  region: (flat_start, flat_end) or None for the whole
     reference.  Both orientations probe over a doubled (fwd ++ rc) reference
-    array.  ``stats`` (optional dict, filled in place) reports anchor and
-    assembly truncation so dense regions can't drop candidates silently, the
-    memory plan, and ``stage_s``: seconds in ``probe_filter``,
-    ``probe_exact``, ``anchors``, ``wavefront`` and ``extract``, each read
+    array.  readmap: the library's ``Readmap`` on the seqset's device, or
+    None; with it the assemblies are scored by read coverage, filtered at
+    min_alt_support and pair-gated.  ``stats`` (optional dict, filled in
+    place) reports anchor and assembly truncation so dense regions can't
+    drop candidates silently, the memory plan, ``pair_gated``, and
+    ``stage_s``: seconds in ``probe_filter``, ``probe_exact``, ``anchors``,
+    ``wavefront``, ``score`` (with a readmap) and ``extract``, each read
     after the device has drained.  out_assemblies: optional list; the
-    deduped Assembly records are appended to it.
+    deduped (with a readmap: scored and gated) Assembly records are
+    appended to it.
 
     Returns the records (dicts of chrom, pos, ref, alt, support,
     ref_support, aid), sorted by position.  Without a readmap ``support`` is
     the narrowest range along the alt path and ``ref_support`` is 0."""
     opt = opt or DiscoverOptions()
-    if readmap is not None:
-        raise NotImplementedError(
-            "discovery with a readmap scores and pair-gates the assemblies "
-            "(score_assemblies, pair_gate_assemblies over Readmap.coverage), "
-            "which is not ported yet; call with readmap=None"
-        )
     if not use_prescreen(opt):
         raise NotImplementedError(
             f"min_anchor_ctx < {_PRESCREEN_K} needs the dense front end "
-            "(probes.probe_ranges and the restart masks), which is not "
+            "(the restart masks of the non-prescreen route), which is not "
             "ported yet"
         )
     dev = ss.device
+    if readmap is not None and readmap.device != dev:
+        raise ValueError(
+            f"discover_variants: the readmap lies on {readmap.device}, the "
+            f"seqset on {dev}"
+        )
     ref = np.asarray(reference.flat)
     G = len(ref)
     lo, hi = region if region else (0, G)
@@ -1022,6 +1034,12 @@ def discover_variants(
         if key not in uniq or a.support > uniq[key].support:
             uniq[key] = a
     all_asms = list(uniq.values())
+    if readmap is not None:
+        all_asms = score_assemblies(readmap, ref, all_asms, opt)
+        # sub-threshold assemblies can never yield an emittable record
+        all_asms = [a for a in all_asms if a.support >= opt.min_alt_support]
+        # long alt paths without any mate-pair anchoring are discarded
+        all_asms = pair_gate_assemblies(readmap, ref, all_asms, opt, stats)
     if opt.trace_offsets:
         for a in all_asms:
             if any(a.anchor <= t <= a.rejoin for t in opt.trace_offsets):
@@ -1032,6 +1050,8 @@ def discover_variants(
                 )
     if out_assemblies is not None:
         out_assemblies.extend(all_asms)
+    if readmap is not None:
+        clock.mark("score")
     records = extract_variants(all_asms, ref, reference, opt, device=dev)
     clock.mark("extract")
     return _dedup_records(records)
@@ -1049,6 +1069,172 @@ def _rc_assembly(a: Assembly, G: int) -> Assembly:
         support=a.support,
         ref_support=a.ref_support,
     )
+
+
+# ---------------------------------------------------------------------------
+# scoring and the pair gate
+# ---------------------------------------------------------------------------
+
+
+def _ref_pair_spans(rm: Readmap, ref: np.ndarray, max_frag: int):
+    """Proper-pair spans [a, b) and half-placed mate positions on the
+    reference, computed once per readmap and cached on the instance.
+
+    A proper pair has both mates placed, on opposite strands, at most
+    max_frag apart.  A half-placed pair (one mate on the novel path of an
+    insertion never places) is kept as one position: generous evidence for
+    the gate, which only culls paths with nothing."""
+    key = ("_ref_pair_spans", max_frag)
+    hit = rm.__dict__.get(key)
+    if hit is not None:
+        return hit
+    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads
+
+    loop = rm.mate_pair_ptr.cpu().numpy()
+    fwd_ids = np.nonzero(rm.is_forward.cpu().numpy())[0]
+    mate2 = loop[loop]
+    entries = rm.entry_of_rm[torch.from_numpy(fwd_ids).to(rm.device)]
+    lens = rm.read_lengths.cpu().numpy()[fwd_ids]
+    L = int(lens.max(initial=1))
+    codes = np.zeros((len(fwd_ids), L), np.uint8)
+    for lo in range(0, len(fwd_ids), 1 << 17):
+        hi = min(len(fwd_ids), lo + (1 << 17))
+        codes[lo:hi] = rm.seqset.d.sequences(entries[lo:hi], L).cpu().numpy()
+    codes = np.where(np.arange(L)[None, :] < lens[:, None], codes, 0).astype(np.uint8)
+    idx = RefKmerIndex.build(ref, 13, device=rm.device)
+    pl = place_reads(idx, codes, lens, max_mismatches=3)
+    pos_of_fwd = np.full(rm.num_entries, -1, np.int64)
+    pos_of_fwd[fwd_ids] = np.arange(len(fwd_ids))
+    mate_idx = pos_of_fwd[mate2[fwd_ids]]
+    mclip = np.clip(mate_idx, 0, len(fwd_ids) - 1)
+    placed = pl.pos >= 0
+    paired = (mate_idx != np.arange(len(fwd_ids))) & (mate_idx >= 0)
+    both = placed & paired & placed[mclip]
+    proper = (
+        both
+        & (np.abs(pl.pos - pl.pos[mclip]) <= max_frag)
+        & (pl.is_rc != pl.is_rc[mclip])
+    )
+    a = np.minimum(pl.pos, pl.pos[mclip])[proper]
+    b = np.maximum(pl.pos + lens, pl.pos[mclip] + lens)[proper]
+    half = paired & (placed ^ placed[mclip])
+    half_pos = np.where(placed, pl.pos, pl.pos[mclip])[half]
+    half_len = np.where(placed, lens, lens[mclip])[half]
+    order = np.argsort(a)
+    spans = (a[order], b[order], np.sort(half_pos + half_len // 2))
+    rm.__dict__[key] = spans
+    return spans
+
+
+def pair_gate_assemblies(rm: Readmap, ref: np.ndarray, asms: List[Assembly],
+                         opt: DiscoverOptions, stats: dict | None = None):
+    """The tracer's pair-evidence discard, at assembly acceptance: alt paths
+    longer than max_bases_between_pairs must show min_pair_evidence proper
+    pairs straddling the bubble (or half-placed mates within
+    max_pair_distance of it).  Vacuous when the library is unpaired."""
+    if not opt.pair_gate or not asms:
+        return asms
+    if rm.num_entries == 0 or rm.get_pair_stats()["paired_reads"] == 0:
+        return asms
+    if not any(len(a.seq) > opt.max_bases_between_pairs for a in asms):
+        return asms
+    a_s, b_s, half_mid = _ref_pair_spans(rm, ref, opt.max_pair_distance)
+    kept = []
+    gated = 0
+    for a in asms:
+        if len(a.seq) <= opt.max_bases_between_pairs:
+            kept.append(a)
+            continue
+        # proper pairs straddling the bubble: a <= anchor and b >= rejoin
+        i = np.searchsorted(a_s, a.anchor + 1, side="right")
+        straddle = int((b_s[:i] >= a.rejoin).sum())
+        # half-placed mates near the bubble (novel-insertion evidence)
+        lo = np.searchsorted(half_mid, a.anchor - opt.max_pair_distance)
+        hi = np.searchsorted(half_mid, a.rejoin + opt.max_pair_distance)
+        if straddle + int(hi - lo) >= opt.min_pair_evidence:
+            kept.append(a)
+        else:
+            gated += 1
+    if stats is not None:
+        stats["pair_gated"] = stats.get("pair_gated", 0) + gated
+    return kept
+
+
+MID_CAP = 192  # ref-span scoring cap for giant deletions (bases per side)
+
+
+def score_assemblies(rm: Readmap, ref: np.ndarray, asms: List[Assembly], opt: DiscoverOptions):
+    """Replace range-width support with read coverage of the alt path: each
+    assembly's alt sequence plus flanking context goes through
+    ``Readmap.coverage``, and support is the least depth across the bubble;
+    the matching reference span is scored the same way (ref_support).
+
+    One padded batch on every device: the JAX package's accelerator form.
+    Its CPU form (one batch per bubble-size bucket) gives the same values,
+    since a row's coverage does not depend on its padding or its
+    neighbours."""
+    if not asms:
+        return asms
+    rows, q, ql = _score_rows(ref, asms, int(rm.max_read_len) + 2)
+    kmax = opt.read_cov_max_reads_per_entry or 16
+    fwd, rev = rm.coverage(q, ql, kmax=kmax)
+    fwd = fwd.cpu().numpy()
+    rev = rev.cpu().numpy()
+    tot = fwd + rev
+    if opt.penalize_directional_coverage:
+        # discount heavily one-sided depth: one direction dominating is the
+        # signature of systematic read errors
+        skew = np.abs(fwd - rev) * 4 > tot * 3
+        tot = np.where(skew, 2 * np.minimum(fwd, rev), tot)
+    ref_mins: dict = {}
+    for r, (i, kind, seq, lo, hi) in enumerate(rows):
+        win = tot[r, lo:hi]
+        v = int(win.min()) if len(win) else 0
+        if kind == 0:
+            asms[i].support = v
+        else:
+            ref_mins[i] = min(ref_mins.get(i, 1 << 30), v)
+    for i, a in enumerate(asms):
+        a.ref_support = ref_mins.get(i, 0)
+    return asms
+
+
+def _score_rows(ref: np.ndarray, asms: List[Assembly], C: int):
+    """The coverage rows of a scoring batch: (rows, q uint8 [B, qlen], ql
+    int32 [B]), rows as (asm_idx, kind, seq, lo, hi) with kind 0 the alt
+    path, 1 the reference span, 2 a breakpoint window of a giant one; the
+    least depth over [lo, hi) of a row is its score.  C is the flank: a full
+    read length and two, since the walk counts a read only once its END is
+    reached with enough context."""
+    rows = []
+    for i, a in enumerate(asms):
+        left = ref[max(a.anchor + 1 - C, 0) : a.anchor + 1]
+        right = ref[a.rejoin : a.rejoin + C]
+        alt = np.asarray(a.seq, np.uint8)
+        seq = np.concatenate([left, alt, right])
+        rows.append(
+            (i, 0, seq, max(len(left) - 1, 0), min(len(left) + len(alt) + 1, len(seq)))
+        )
+        mid = ref[a.anchor + 1 : a.rejoin]
+        if len(mid) <= 2 * MID_CAP:
+            seq = np.concatenate([left, mid, right])
+            rows.append(
+                (i, 1, seq, max(len(left) - 1, 0), min(len(left) + len(mid) + 1, len(seq)))
+            )
+        else:
+            # a long deletion: its two breakpoint windows, each stopping C
+            # short of the cut, where context is truncated
+            lseq = np.concatenate([left, mid[: MID_CAP + C]])
+            rows.append((i, 2, lseq, max(len(left) - 1, 0), len(left) + MID_CAP))
+            rseq = np.concatenate([mid[-(MID_CAP + C) :], right])
+            rows.append((i, 2, rseq, MID_CAP + C, len(rseq)))
+    qlen = max(max(len(r[2]) for r in rows), 2 * C + 1)
+    q = np.zeros((len(rows), qlen), np.uint8)
+    ql = np.zeros(len(rows), np.int32)
+    for r, (_, _, seq, _, _) in enumerate(rows):
+        q[r, : len(seq)] = seq
+        ql[r] = len(seq)
+    return rows, q, ql
 
 
 # ---------------------------------------------------------------------------
@@ -1149,6 +1335,90 @@ def extract_variants(assemblies: List[Assembly], ref: np.ndarray, reference,
                 }
             )
     return _dedup_records(out)
+
+
+def write_discovery_vcf(path: str, reference, records, sample="SAMPLE", opt=None):
+    """Emit discovery records as VCF.  Genotypes come from the binomial
+    genotyper over alt vs ref bubble coverage, not a hardcoded ploidy; with
+    ``simple_genotype_filter`` records under the depth floors or the alt
+    depth share are left out."""
+    from biograph_tpu_torch.io.vcf import VcfRecord, VcfWriter
+
+    opt = opt or DiscoverOptions()
+    headers = [
+        '##INFO=<ID=SUP,Number=1,Type=Integer,Description="Min read support along assembly">',
+        '##INFO=<ID=RSUP,Number=1,Type=Integer,Description="Min read support along the reference span">',
+        '##INFO=<ID=PAIRS,Number=1,Type=Integer,Description="Mate pairs straddling the event">',
+        '##INFO=<ID=AID,Number=1,Type=Integer,Description="Assembly id">',
+        '##INFO=<ID=SVLEN,Number=1,Type=Integer,Description="Length difference alt-ref">',
+        '##INFO=<ID=SVTYPE,Number=1,Type=String,Description="Structural variant type">',
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+        '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read Depth">',
+    ]
+    with VcfWriter(
+        path,
+        sample=sample,
+        contigs=[(c.name, c.length) for c in reference.contigs],
+        extra_headers=headers,
+    ) as w:
+        for r in records:
+            if r["support"] < opt.min_alt_support:
+                continue
+            alt_d = int(r["support"])
+            ref_d = int(r.get("ref_support", 0))
+            if opt.simple_genotype_filter:
+                # depth floors, then the alt-depth share of the local depth
+                if alt_d < opt.min_read_depth:
+                    continue
+                if int(r.get("pair_support", opt.min_pair_depth)) < opt.min_pair_depth:
+                    continue
+                total_d = alt_d + ref_d
+                if total_d and alt_d / total_d < opt.min_depth_portion:
+                    continue
+            frac = alt_d / max(alt_d + ref_d, 1)
+            gt = "1/1" if frac >= opt.hom_frac else "0/1"
+            info = {"SUP": alt_d, "RSUP": ref_d}
+            if "pair_support" in r:
+                info["PAIRS"] = int(r["pair_support"])
+            if opt.output_assembly_ids and "aid" in r:
+                info["AID"] = int(r["aid"])
+            svlen = len(r["alt"]) - len(r["ref"])
+            if abs(svlen) >= opt.vcf_sv_size_threshold:
+                info["SVLEN"] = svlen
+                info["SVTYPE"] = "INS" if svlen > 0 else "DEL"
+            w.write(
+                VcfRecord(
+                    chrom=r["chrom"],
+                    pos=r["pos"],
+                    ref=r["ref"],
+                    alt=r["alt"],
+                    qual=3 * alt_d + 27,
+                    info=info,
+                    fmt={"GT": gt, "DP": alt_d + ref_d},
+                )
+            )
+
+
+def write_assembly_csv(path: str, reference, assemblies: List[Assembly]):
+    """Assembly dump CSV: one row per scored assembly with its bubble
+    coordinates, support and both sequences.  Returns the row count."""
+    ref = np.asarray(reference.flat)
+    with open(path, "w") as f:
+        f.write(
+            "scaffold_name,left_offset,right_offset,aid,score,ref_support,"
+            "ref_seq,seq,generated_by\n"
+        )
+        for aid, a in enumerate(assemblies):
+            c = _contig_of(reference, a.anchor)
+            if c is None:
+                continue
+            f.write(
+                f"{c.name},{a.anchor - c.start},{a.rejoin - c.start},{aid},"
+                f"{a.support},{a.ref_support},"
+                f"{dna.codes_to_seq(ref[a.anchor + 1 : a.rejoin])},"
+                f"{dna.codes_to_seq(np.asarray(a.seq, np.uint8))},WAVEFRONT\n"
+            )
+    return len(assemblies)
 
 
 def _align_decompose(ref, pos_flat, rs, as_, ops=None):

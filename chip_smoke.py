@@ -20,9 +20,21 @@ then replayed stage by stage with push4, rank and chain_window each held
 against its plain version on the very lanes discovery hands it; a small
 genome with an insertion, a deletion and a block substitution is discovered on
 the card and on the CPU with identical records, which takes the affine DP to
-the card.  Last, the rank kernels are timed side by side on a rank structure
-that outgrows the card's L2 cache, where the rank-block table and the
-bucketing kernels of rank4_tiled are held against their plain versions too.
+the card.  Then discovery runs with the readmap the path built and loaded
+(scoring by read coverage, the min_alt_support filter, the pair gate), cold
+and warm, and its records are held to the JAX package's CPU leg on the same
+workload (``tests/data/torch_scaled_leg_records.tsv``) and written as VCF and
+read back; over a region the same call runs on a CPU copy of the store and
+the readmap; coverage of a slab of the scored rows runs without the hash
+index, through chain_fixed, held against its plain version and against the
+hash route; a paired library (a 400-base insertion, mates at fragment 260)
+is discovered on the card and on a CPU copy with identical records, and its
+insertion culled on both by a gate that asks for more pairs than exist; so is
+coverage on a library of mixed read lengths (its general route: probe_ranges,
+then the chain kernel).  Last, the rank kernels are timed side by side on a
+rank structure that outgrows the card's L2 cache, where the rank-block table
+and the bucketing kernels of rank4_tiled are held against their plain
+versions too.
 
 Any failure raises and the exit code is non-zero; there is no CPU fallback.
 Stage times are host-clock times read after ``torch.cuda.synchronize()``;
@@ -38,6 +50,7 @@ kernels.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -50,7 +63,9 @@ from biograph_tpu_torch.build.readmap_build import build_readmap
 from biograph_tpu_torch.build.seqset_build import build_seqset
 from biograph_tpu_torch.convert import reference_from_numpy
 from biograph_tpu_torch.index import probes
+from biograph_tpu_torch.index import readmap as readmap_mod
 from biograph_tpu_torch.index.readmap import Readmap
+from biograph_tpu_torch.io.vcf import read_vcf
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops import _build, rank4 as rank4_ops, rank_cum as rank_cum_ops
 from biograph_tpu_torch.variants import discover as disc
@@ -78,9 +93,13 @@ WRAPPERS = {
     "gather_sizes": rank4_ops.gather_sizes,
     "push4": rank4_ops.push4,
     "chain_window": rank4_ops.chain_window,
+    "chain_fixed": rank4_ops.chain_fixed,
     "rank_cum": rank_cum_ops.rank_cum,
 }
-SOURCES = {"rank": "rank4"}  # a kernel whose source is not named after it
+# the kernels of the create-and-query path: chain_fixed is coverage's (its
+# uniform route without the hash index), which scored_checks drives
+MAIN_PATH_KERNELS = tuple(name for name in WRAPPERS if name != "chain_fixed")
+SOURCES = {"rank": "rank4", "chain_fixed": "chain_window"}  # kernels whose source is not named after them
 REPLACES = {
     "rank4": "biograph_tpu/ops/rank4.py:134",
     "rank": "biograph_tpu/ops/rank4.py:134",
@@ -88,6 +107,7 @@ REPLACES = {
     "gather_sizes": "biograph_tpu/ops/rank4.py:202",
     "push4": "biograph_tpu/ops/rank4.py:202",
     "chain_window": "biograph_tpu/ops/rank4.py:359",
+    "chain_fixed": "biograph_tpu/ops/rank4.py:407",
     "rank_cum": "biograph_tpu/ops/pallas_rank.py:89",
 }
 
@@ -117,7 +137,7 @@ def _profiled(fn, stage):
 
     # discovery is tens of thousands of launches: its trace keeps the device
     # side only
-    activities = [ProfilerActivity.CUDA] if stage == "discover" else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    activities = [ProfilerActivity.CUDA] if stage.startswith("discover") else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with profile(activities=activities) as prof:
         out = fn()
@@ -488,12 +508,14 @@ def chain_sectors(d, win, m, depth):
 SECTOR = 32
 
 
-def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, probe_m_mixed, breakdown=False):
+def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, probe_m_mixed, coverage_slab, breakdown=False):
     """Each kernel at the main path's shapes: equality with the plain
     version, times, and the least time the card could take.  ``ms``,
     ``plain_ms`` and ``library_ms`` are device times (calls queued behind a
     stall); ``call_ms`` is the kernel wrapper's time per call as a caller
-    issuing it in a loop sees it, host cost included."""
+    issuing it in a loop sees it, host cost included.  coverage_slab: (text,
+    depth) of the slab of scored rows that scored_checks ran through
+    chain_fixed."""
     rows = []
     d = ss.d
     dev = d.device
@@ -693,6 +715,29 @@ def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, prob
                 for k in (P // 16, P // 4, P)
             },
         })
+
+    # chain_fixed as coverage's uniform route without the hash calls it: the
+    # depth-long window ending at every position of a slab of scored rows
+    # (the window rows built inside the call).  The byte bound counts the
+    # text, the outputs, the block table and the sizes touched; the
+    # operations, this run's pushes (the sum of the sizes that come back) at
+    # CHAIN_OPS_PER_STEP.
+    cov_text, cov_depth = coverage_slab
+    PC = cov_text.shape[0]
+    cov_m = torch.full((PC,), cov_depth, dtype=torch.int32, device=dev)
+    cov_steps = int(rank4_ops.chain_fixed(blocks, d.entry_sizes, d.fixed, cov_text, cov_depth)[2].to(torch.int64).sum())
+    row(
+        "chain_fixed",
+        lambda: rank4_ops.chain_fixed(blocks, d.entry_sizes, d.fixed, cov_text, cov_depth),
+        lambda: rank4_ops.chain_window_plain(blocks, d.entry_sizes, d.fixed, rank4_ops.contig_windows(cov_text, cov_depth), cov_m, cov_depth),
+        PC + PC * 20 + blocks_bytes + min(cov_steps * 4, n * 4) + 40,
+        cov_steps * CHAIN_OPS_PER_STEP,
+        plain_reps=2,
+    )
+    rows[-1].update(
+        lanes=PC, depth=cov_depth, steps=cov_steps, launches_counted_in="scored_checks",
+        windows_ms=event_ms(lambda: rank4_ops.contig_windows(cov_text, cov_depth), 20, stall=stall),
+    )
 
     # the sector floor of gather_sizes in L2, at the rate this run's
     # chain_window (m == depth) is served its sectors
@@ -954,7 +999,7 @@ def check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, d
 
 DISCOVER_KERNELS = ("push4", "rank", "chain_window")
 DISCOVER_OPT = dict(min_alt_support=5)
-REGION = (0, 65536)  # held against the plain versions on a CPU copy of the store
+REGION = (0, 32768)  # held against the plain versions on a CPU copy of the store
 MIN_READS_OVER_SNP = 5
 # the least share of the well-covered planted SNPs that discovery must find
 MIN_SNP_SHARE = 0.99
@@ -1004,12 +1049,13 @@ def key_of(r):
     return (r["chrom"], r["pos"], r["ref"], r["alt"], r["support"], r["ref_support"])
 
 
-def discover_checks(dev, ss, reference, genome, records, snp, donor, starts, read_len, min_share=MIN_SNP_SHARE):
+def discover_checks(dev, ss, ss_cpu, reference, genome, records, snp, donor, starts, read_len, min_share=MIN_SNP_SHARE):
     """(a) every record's ref allele is the genome's at its position; (b) the
     planted SNPs that at least MIN_READS_OVER_SNP reads cover together with
     min_anchor_ctx bases before and rejoin_k + 1 after are found, at
-    ``min_share`` of them or more; (c) over REGION the card and a CPU copy of
-    the store (every kernel's plain version) give identical records."""
+    ``min_share`` of them or more; (c) over REGION the card and ss_cpu, a CPU
+    copy of the store (every kernel's plain version), give identical
+    records."""
     opt = disc.DiscoverOptions(**DISCOVER_OPT)
     G = genome.shape[0]
     code_of = {c: i for i, c in enumerate("ACGT")}
@@ -1033,7 +1079,7 @@ def discover_checks(dev, ss, reference, genome, records, snp, donor, starts, rea
         raise AssertionError(f"discovery found {share:.4f} of the well-covered planted SNPs, under {min_share}: {result}")
     # (c) the same region on the card and on a CPU copy of the store
     on_card, _, result["region_card_s"], launches = run_discover(ss, reference, region=REGION)
-    on_cpu = disc.discover_variants(ss.to("cpu"), reference, region=REGION, opt=opt)
+    on_cpu = disc.discover_variants(ss_cpu, reference, region=REGION, opt=opt)
     if not on_card or list(map(key_of, on_card)) != list(map(key_of, on_cpu)):
         raise AssertionError(f"discovery over {REGION}: {len(on_card)} records on the card, {len(on_cpu)} on the CPU copy, or they differ")
     result.update(region=list(REGION), region_records=len(on_card), region_launches=launches)
@@ -1206,6 +1252,230 @@ def beam_step_profile(ss, reference, steps=8):
     }
 
 
+# ---------------------------------------------------------------------------
+# discovery with the readmap: scoring, the pair gate, VCF
+# ---------------------------------------------------------------------------
+
+RECORDS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "torch_scaled_leg_records.tsv")
+
+
+def read_records_file(path=RECORDS_FILE):
+    """The JAX package's records of this workload with its readmap, on the
+    CPU (the file's header names the command that made it): (chrom, pos,
+    ref, alt, support, ref_support) tuples."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            chrom, pos, ref, alt, sup, rsup = line.rstrip("\n").split("\t")
+            out.append((chrom, int(pos), ref, alt, int(sup), int(rsup)))
+    return out
+
+
+def discover_scored_phase(ss, rm, reference, want, build_s, reads):
+    """discover_variants with the readmap over the whole genome on the card,
+    cold (the window hash index is built and cached on the readmap) and
+    warm; its records must be the JAX CPU leg's.  The VCF of them is written
+    and read back.  Fails if a kernel of the path was launched no time.
+    Returns (records, the scored assemblies, what to print)."""
+    out = {}
+    for run in ("cold", "warm"):
+        asms = []
+        records, stats, seconds, launches = run_discover(ss, reference, readmap=rm, out_assemblies=asms)
+        missing = [name for name in DISCOVER_KERNELS if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"scored discovery launched no {missing} kernel")
+        out[run] = {"seconds": seconds, "stage_s": stats["stage_s"], "launches": launches}
+    got = [key_of(r) for r in records]
+    if got != want:
+        lost, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+        raise AssertionError(
+            f"scored discovery: {len(got)} records, the JAX CPU leg {len(want)}; "
+            f"{len(lost)} of its records missing (first {lost[:3]}), {len(extra)} not among them (first {extra[:3]})"
+        )
+    with tempfile.TemporaryDirectory() as tmp:
+        disc.write_discovery_vcf(tmp + "/scored.vcf", reference, records, opt=disc.DiscoverOptions(**DISCOVER_OPT))
+        back = read_vcf(tmp + "/scored.vcf")
+    by_site = {(r["chrom"], r["pos"], r["ref"], r["alt"]): r for r in records}
+    for v in back:
+        r = by_site[(v.chrom, v.pos, v.ref, v.alt)]
+        if (int(v.info["SUP"]), int(v.info["RSUP"])) != (r["support"], r["ref_support"]):
+            raise AssertionError(f"VCF record {v.chrom}:{v.pos} does not carry its record's support")
+    if not back:
+        raise AssertionError("no record passed the genotype filter into the VCF")
+    out.update(
+        records=len(records), want_records=len(want), pair_gated=stats.get("pair_gated", 0),
+        assemblies_scored=len(asms), anchors_found=stats["anchors_found"],
+        vcf_records_passing_genotype_filter=len(back), build_and_readmap_s=build_s,
+        reads_per_s_build_and_warm_call=reads / (build_s + out["warm"]["seconds"]),
+        reads_per_s_build_and_cold_call=reads / (build_s + out["cold"]["seconds"]),
+    )
+    return records, asms, out
+
+
+def coverage_slab(rm, asms, ref):
+    """The first slab of the coverage batch that scoring builds for asms:
+    (q, ql, Lp) with as many rows as one slab of the coverage walk holds."""
+    _, q, ql = disc._score_rows(ref, asms, rm.max_read_len + 2)
+    Lp = max(64, -(-q.shape[1] // 64) * 64)
+    rows = 1 << ((readmap_mod.SLAB_LANES // Lp).bit_length() - 1)
+    return q[:rows], ql[:rows], Lp
+
+
+def coverage_text(q, Lp):
+    """The text the coverage walk hands its probes for these rows: each row
+    padded to Lp bases, the row count to a power of two, flattened."""
+    Bp = 1 << max((q.shape[0] - 1).bit_length(), 0)
+    cp = np.zeros((Bp, Lp), np.uint8)
+    cp[: q.shape[0], : q.shape[1]] = q
+    return cp.reshape(-1)
+
+
+def paired_library(rng, donor, n_pairs=1500, L=60, frag=260):
+    """Mates at fragment 260, the second reverse-complemented: the library
+    of tests/test_pair_gate.py, at 1500 pairs."""
+    s = rng.integers(0, len(donor) - frag, n_pairs)
+    first = donor[s[:, None] + np.arange(L)]
+    second = (3 - donor[(s + frag - L)[:, None] + np.arange(L)])[:, ::-1]
+    codes = np.stack([first, second], axis=1).reshape(2 * n_pairs, L).astype(np.uint8)
+    mate = np.arange(2 * n_pairs)
+    mate[0::2] += 1
+    mate[1::2] -= 1
+    return codes, np.full(2 * n_pairs, L, np.int32), mate
+
+
+def card_and_cpu(name, ss, rm, rm_cpu, reference, opt, **kw):
+    """discover_variants with the readmap on the card and on rm_cpu, a CPU
+    copy of the store and the readmap: the same records and pair_gated, or
+    fail.  Returns the card's (records, stats) and the scored, gated
+    assemblies of both, card first."""
+    runs = []
+    for on_ss, on_rm in ((ss, rm), (rm_cpu.seqset, rm_cpu)):
+        stats, asms = {}, []
+        runs.append((disc.discover_variants(on_ss, reference, opt=opt, readmap=on_rm, stats=stats, out_assemblies=asms, **kw), stats, asms))
+    (on_card, card_stats, card_asms), (on_cpu, cpu_stats, cpu_asms) = runs
+    if list(map(key_of, on_card)) != list(map(key_of, on_cpu)):
+        raise AssertionError(f"{name}: {len(on_card)} records on the card, {len(on_cpu)} on the CPU copy, or they differ")
+    require_same_gate(name, card_stats, cpu_stats)
+    return on_card, card_stats, (card_asms, cpu_asms)
+
+
+def require_same_gate(name, card_stats, cpu_stats):
+    if card_stats.get("pair_gated") != cpu_stats.get("pair_gated"):
+        raise AssertionError(f"{name}: pair_gated {card_stats.get('pair_gated')} on the card, {cpu_stats.get('pair_gated')} on the CPU copy")
+
+
+def region_check(ss, rm, rm_cpu, reference):
+    """Over REGION, scored discovery on the card and on rm_cpu, a CPU copy of
+    the store and the readmap, gives the same records, and some."""
+    on_card, _, _ = card_and_cpu("scored discovery over REGION", ss, rm, rm_cpu, reference, disc.DiscoverOptions(**DISCOVER_OPT), region=REGION)
+    if not on_card:
+        raise AssertionError(f"scored discovery over {REGION}: no record")
+    return len(on_card)
+
+
+def chain_fixed_check(dev, ss, rm, reference, asms):
+    """Coverage of a slab of the scored rows through the uniform route
+    without the hash index launches chain_fixed, which is held against its
+    plain version on the same windows, and gives the hash route's coverage.
+    Returns (what to print, the slab as (text, depth))."""
+    q, ql, Lp = coverage_slab(rm, asms, reference.flat)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    chained = rm._coverage_full(q, ql, 16, use_hash=False)
+    launches = rank4_ops.chain_fixed.launches
+    if launches == 0:
+        raise AssertionError("coverage without the hash index launched no chain_fixed kernel")
+    hashed = rm._coverage_full(q, ql, 16)
+    require_equal("coverage through chain_fixed vs the hash route", tuple(chained), tuple(hashed))
+    d = ss.d
+    depth = min(ss.max_entry_len, Lp)
+    text = torch.from_numpy(coverage_text(q, Lp)).to(dev)
+    m = torch.full((text.shape[0],), depth, dtype=torch.int32, device=dev)
+    require_equal(
+        "chain_fixed on the scored slab",
+        rank4_ops.chain_fixed(d.rank_blocks, d.entry_sizes, d.fixed, text, depth),
+        rank4_ops.chain_window_plain(d.rank_blocks, d.entry_sizes, d.fixed, rank4_ops.contig_windows(text, depth), m, depth),
+    )
+    return {
+        "rows": int(q.shape[0]), "lanes": int(text.shape[0]), "depth": depth, "launches": launches,
+        "read_ends_counted": int(hashed[3].sum()),
+    }, (text, depth)
+
+
+def paired_check(dev, seed=SEED + 11, n_pairs=1500):
+    """A 6000-base genome whose donor carries a novel 400-base insertion,
+    read as pairs: discovered with its readmap (read placement and the pair
+    gate) on the card and on a CPU copy with the same records; the
+    insertion is kept, and culled on both by a gate that asks for more pairs
+    than exist."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 6000, dtype=np.uint8)
+    ins = rng.integers(0, 4, 400, dtype=np.uint8)
+    codes, lens, mate = paired_library(rng, np.concatenate([genome[:3000], ins, genome[3000:]]), n_pairs)
+    ss = build_seqset(codes, lens, device=dev)
+    rm = build_readmap(ss, codes, lens, mate_of=mate, device=dev)
+    reference = reference_from_numpy(genome, np.zeros(6000, bool), [("chr1", 0, 6000)])
+    rm_cpu = rm.to("cpu")
+    kept, kstats, (card_asms, cpu_asms) = card_and_cpu("paired library", ss, rm, rm_cpu, reference, disc.DiscoverOptions(min_alt_support=5, max_path=480))
+    strict = disc.DiscoverOptions(min_alt_support=5, max_path=480, min_pair_evidence=10**6)
+    cstats, cpu_cstats = {}, {}
+    culled = disc.pair_gate_assemblies(rm, genome, card_asms, strict, cstats) + disc.pair_gate_assemblies(rm_cpu, genome, cpu_asms, strict, cpu_cstats)
+    require_same_gate("paired library, strict gate", cstats, cpu_cstats)
+    if [len(r["alt"]) - len(r["ref"]) for r in kept] != [400] or culled or not cstats.get("pair_gated"):
+        raise AssertionError(f"paired library: the 400-base insertion not kept by the gate and culled by a strict one: {kept}, {culled}, {cstats}")
+    return {
+        "records": len(kept), "pair_gated": kstats.get("pair_gated", 0), "strict_gate_pair_gated": cstats["pair_gated"],
+        "proper_pairs": int(len(rm.__dict__[("_ref_pair_spans", 1000)][0])),
+    }
+
+
+def mixed_lengths_check(dev, seed=SEED + 13, genome_len=6000, n_reads=1800):
+    """Reads of 100 bases, about half trimmed by 1-20: coverage (both strands
+    and the start/end events) of windows along the genome takes the general
+    route (probe_ranges through rank, then chain_window), launches both
+    kernels and equals that of a CPU copy of the store and the readmap."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    donor = genome.copy()
+    snp = rng.choice(np.arange(200, genome_len - 200), 40, replace=False)
+    donor[snp] = (donor[snp] + 1 + rng.integers(0, 3, 40)) % 4
+    starts = rng.integers(0, genome_len - 100, n_reads)
+    codes = donor[starts[:, None] + np.arange(100)]
+    half = n_reads // 2
+    codes[:half] = (3 - codes[:half])[:, ::-1]
+    lens = np.full(n_reads, 100, np.int32)
+    lens[1::2] -= rng.integers(1, 21, n_reads - half).astype(np.int32)
+    codes = np.where(np.arange(100)[None, :] < lens[:, None], codes, 0).astype(np.uint8)
+    ss = build_seqset(codes, lens, device=dev)
+    rm = build_readmap(ss, codes, lens, device=dev)
+    windows = np.stack([genome[i : i + 500] for i in range(0, genome_len - 500, 700)])  # 8 rows, no padding row
+    wlens = np.full(len(windows), 500, np.int32)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    got = rm._coverage_full(windows, wlens)
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    require_equal("coverage, general route, card vs CPU copy", tuple(x.cpu() for x in got), rm.to("cpu")._coverage_full(windows, wlens))
+    if launches["rank"] == 0 or launches["chain_window"] == 0:
+        raise AssertionError(f"coverage's general route launched {launches}: no rank or no chain_window")
+    return {"read_lengths": [rm.min_read_len, rm.max_read_len], "windows": len(windows),
+            "read_ends_counted": int(got[3].sum()), "coverage_launches": {k: v for k, v in launches.items() if v}}
+
+
+def scored_checks(dev, ss, rm, rm_cpu, reference, asms):
+    """The scored path's checks beyond the records: the region on a CPU copy,
+    chain_fixed on coverage's path, a paired library and a library of mixed
+    read lengths.  Returns (what to print, the chain_fixed slab as (text,
+    depth), chain_fixed's launches)."""
+    (chained, slab), chained["seconds"] = timed(lambda: chain_fixed_check(dev, ss, rm, reference, asms))
+    region, region_s = timed(lambda: region_check(ss, rm, rm_cpu, reference))
+    paired, paired["seconds"] = timed(lambda: paired_check(dev))
+    mixed, mixed["seconds"] = timed(lambda: mixed_lengths_check(dev))
+    result = {"region_records": region, "region_s": region_s, "chain_fixed": chained, "paired": paired, "mixed_lengths": mixed}
+    return result, slab, chained["launches"]
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -1240,7 +1510,7 @@ def main():
     stats, (ss, rm, found, ranked, pushed, text, probed) = main_path(dev, genome, codes, lengths)
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    missing = [name for name, count in launches.items() if count == 0]
+    missing = [name for name in MAIN_PATH_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"the main path launched no {missing} kernel")
     if ss.n_entries < 1_000_000:
@@ -1255,20 +1525,31 @@ def main():
     reference = reference_from_numpy(genome, np.zeros(GENOME, bool), [("chr1", 0, GENOME)])
     records, found_by = discover_phase(ss, reference)
     say(phase="discover", card=card, **found_by)
-    checks, seconds = timed(lambda: discover_checks(dev, ss, reference, genome, records, snp, donor, starts, READ_LEN))
+    rm_cpu = rm.to("cpu")  # one CPU copy of the store and the readmap for every region check
+    checks, seconds = timed(lambda: discover_checks(dev, ss, rm_cpu.seqset, reference, genome, records, snp, donor, starts, READ_LEN))
     say(phase="discover_checks", ok=True, seconds=seconds, **checks)
     holds, seconds = timed(lambda: discover_kernel_holds(ss, reference, found_by["anchors_found"]))
     say(phase="discover_kernel_holds", ok=True, max_abs_err=0, seconds=seconds, **holds)
     small, seconds = timed(lambda: small_genome_checks(dev))
     say(phase="small_genome_checks", ok=True, seconds=seconds, **small)
 
+    # discovery with the readmap the main path built and loaded, held to the
+    # JAX package's CPU leg (its reference names the contig as bench.py does)
+    scored_reference = reference_from_numpy(genome, np.zeros(GENOME, bool), [("chr", 0, GENOME)])
+    _, scored_asms, scored = discover_scored_phase(ss, rm, scored_reference, read_records_file(), stats["build_s"] + stats["readmap_s"], READS)
+    say(phase="discover_scored", card=card, **scored)
+    (checked, cov_slab, chain_fixed_launches), seconds = timed(lambda: scored_checks(dev, ss, rm, rm_cpu, reference, scored_asms))
+    say(phase="scored_checks", ok=True, max_abs_err=0, seconds=seconds, **checked)
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
     breakdown = profile_to is not None
-    rows = kernel_table(ss, launches, found, text, probe_pos, probe_m, probe_m_mixed, breakdown)
+    launches["chain_fixed"] = chain_fixed_launches
+    rows = kernel_table(ss, launches, found, text, probe_pos, probe_m, probe_m_mixed, cov_slab, breakdown)
     for r in rows:
         r["launches_discover"] = found_by["warm"]["launches"][r["name"]]
+        r["launches_discover_scored"] = scored["warm"]["launches"][r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:
@@ -1276,7 +1557,7 @@ def main():
         # the kernels warm, and once with each stage under torch.profiler:
         # [kernel name, calls, device ms] for the heaviest kernels, and the
         # share of the warm stage time in which the device sat idle
-        del rm, found, ranked, pushed, text, probed
+        del found, ranked, pushed, text, probed
         warm, _ = main_path(dev, genome, codes, lengths)
         PROFILE = {}
         main_path(dev, genome, codes, lengths)
@@ -1285,6 +1566,17 @@ def main():
             cold_s=found_by["cold"]["seconds"], warm_s=found_by["warm"]["seconds"],
             stage_s_warm=found_by["warm"]["stage_s"], beam_step=beam_step_profile(ss, reference),
         )
+        run_discover(ss, scored_reference, stage="discover_scored", readmap=rm)
+        PROFILE["discover_scored"].update(
+            cold_s=scored["cold"]["seconds"], warm_s=scored["warm"]["seconds"], stage_s_warm=scored["warm"]["stage_s"],
+        )
+        # the score stage's coverage batch alone, on the warm call's
+        # assemblies: host- or device-bound
+        opt = disc.DiscoverOptions(**DISCOVER_OPT)
+        again = [disc.Assembly(a.chunk_start, a.anchor, a.rejoin, a.seq, a.support) for a in scored_asms]
+        _, score_s = timed(lambda: disc.score_assemblies(rm, genome, again, opt))
+        timed(lambda: disc.score_assemblies(rm, genome, again, opt), "score")
+        PROFILE["score"].update(cold_s=scored["warm"]["stage_s"]["score"], warm_s=score_s, assemblies=len(again))
         for stage, seen in PROFILE.items():
             seen.setdefault("cold_s", stats.get(stage + "_s"))
             seen.setdefault("warm_s", warm.get(stage + "_s"))

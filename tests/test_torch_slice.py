@@ -41,6 +41,17 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _fresh_jax_text_hashes():
+    """The JAX package caches a text's rolling-hash prefix sums under the
+    text's id(), which a later array of the same length can reuse: its CPU
+    discovery would then filter with another genome's hashes.  Every test
+    starts without them."""
+    from biograph_tpu.index import probes as _jprobes
+
+    _jprobes._TEXT_HASH_CACHE.clear()
+
+
 @pytest.fixture(scope="module")
 def slice_run(tmp_path_factory):
     """Both packages run the slice on the same FASTQ file and save."""
@@ -213,13 +224,14 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
     records, dstats, _, launches = chip_smoke.run_discover(ss, reference)
     assert set(launches) == set(chip_smoke.WRAPPERS) and not any(launches.values())  # CPU tensors: the plain versions
     assert set(dstats["stage_s"]) == {"probe_filter", "probe_exact", "anchors", "wavefront", "extract"}
-    found = chip_smoke.discover_checks(dev, ss, reference, genome, records, snp, donor, starts, 100)
+    rm_cpu = rm.to("cpu")
+    found = chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, records, snp, donor, starts, 100)
     assert found["planted"] == 16 and found["share"] == 1.0 and found["well_covered"] > 0 and found["region_records"] > 0
     bad = [dict(records[0], ref="ACGT"[("ACGT".index(records[0]["ref"][0]) + 1) % 4] + records[0]["ref"][1:])] + records[1:]
     with pytest.raises(AssertionError, match="not the genome's"):
-        chip_smoke.discover_checks(dev, ss, reference, genome, bad, snp, donor, starts, 100)
+        chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, bad, snp, donor, starts, 100)
     with pytest.raises(AssertionError, match="well-covered planted SNPs"):
-        chip_smoke.discover_checks(dev, ss, reference, genome, records[:1], snp, donor, starts, 100)
+        chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, records[:1], snp, donor, starts, 100)
     holds = chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"])
     assert holds["anchors"] == dstats["anchors_found"] > 0 and len(holds["chain_window_mean_m"]) == 4
     assert holds["rank_calls_by_lanes"] and sum(holds["push4_calls_by_lanes"].values()) == 1 + holds["beam_steps"]
@@ -227,6 +239,44 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
         chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"] + 1)
     small = chip_smoke.small_genome_checks(dev)
     assert {0, 5, -7} <= set(small["length_changes"]) and small["records_in_the_block"] >= 2  # the block went through the aligner
+    # discovery with the readmap, held to the JAX package's records of the
+    # same reads (at the real size, the committed records file)
+    from biograph_tpu.build.readmap_build import build_readmap as jax_build_readmap
+    from biograph_tpu.index.reference import Contig
+    from biograph_tpu.variants.discover import DiscoverOptions, discover_variants as jax_discover
+
+    class JRef:
+        flat, is_n, contigs = genome, np.zeros(8000, bool), [Contig(name="chr", start=0, length=8000)]
+
+    js = jax_build_seqset(codes, lengths)
+    want = [chip_smoke.key_of(r) for r in jax_discover(js, JRef(), readmap=jax_build_readmap(js, codes, lengths), opt=DiscoverOptions(min_alt_support=5))]
+    assert want and all(len(k) == 6 for k in chip_smoke.read_records_file()[:3])
+    scored_reference = chip_smoke.reference_from_numpy(genome, np.zeros(8000, bool), [("chr", 0, 8000)])
+    with pytest.raises(AssertionError, match="launched no"):  # CPU tensors launch nothing
+        chip_smoke.discover_scored_phase(ss, rm, scored_reference, want, 1.0, 600)
+    monkeypatch.setattr(chip_smoke, "DISCOVER_KERNELS", ())
+    _, asms, scored = chip_smoke.discover_scored_phase(ss, rm, scored_reference, want, 1.0, 600)
+    assert scored["records"] == len(want) and scored["vcf_records_passing_genotype_filter"] > 0
+    assert "score" in scored["warm"]["stage_s"] and scored["pair_gated"] == 0
+    with pytest.raises(AssertionError, match="the JAX CPU leg"):
+        chip_smoke.discover_scored_phase(ss, rm, scored_reference, want[1:], 1.0, 600)
+    assert chip_smoke.region_check(ss, rm, rm_cpu, reference) > 0
+    with pytest.raises(AssertionError, match="launched no chain_fixed"):
+        chip_smoke.chain_fixed_check(dev, ss, rm, reference, asms)
+    real = chip_smoke.rank4_ops.chain_fixed
+
+    def counted(*args):
+        counted.launches += 1
+        return real(*args)
+
+    counted.launches = 0
+    monkeypatch.setattr(chip_smoke.rank4_ops, "chain_fixed", counted)
+    chained, (cov_text, cov_depth) = chip_smoke.chain_fixed_check(dev, ss, rm, reference, asms)
+    assert chained["launches"] == 1 and cov_depth == 100 and chained["lanes"] == cov_text.shape[0] and chained["read_ends_counted"] > 0
+    paired = chip_smoke.paired_check(dev)
+    assert paired["strict_gate_pair_gated"] >= 1 and paired["proper_pairs"] > 0
+    with pytest.raises(AssertionError, match="no rank or no chain_window"):  # CPU tensors launch nothing
+        chip_smoke.mixed_lengths_check(dev)
 
 
 def test_reads_to_records_each_package_on_its_own_store():
@@ -254,3 +304,43 @@ def test_reads_to_records_each_package_on_its_own_store():
     keys = ("chrom", "pos", "ref", "alt", "support", "ref_support")
     assert [tuple(r[k] for k in keys) for r in got] == [tuple(r[k] for k in keys) for r in want]
     assert {len(r["alt"]) - len(r["ref"]) for r in got} == {0, 6, -9}
+
+
+def test_reads_to_scored_records_and_vcf_each_package_on_its_own_store(tmp_path):
+    """The slice as a whole with the readmap: each package builds its own
+    store and readmap from the same paired reads, discovers with scoring and
+    the pair gate, and writes the same VCF (but for the ``##source=`` line)."""
+    from biograph_tpu.build.readmap_build import build_readmap as jax_build_readmap
+    from biograph_tpu.index.reference import Contig
+    from biograph_tpu.variants import discover as jdisc
+    from biograph_tpu_torch.convert import reference_from_numpy
+    from biograph_tpu_torch.variants import discover as tdisc
+
+    rng = np.random.default_rng(34)
+    n = 3000
+    ref = rng.integers(0, 4, n).astype(np.uint8)
+    donor = ref.copy()
+    donor[[700, 1700, 2300]] = (donor[[700, 1700, 2300]] + 1) % 4
+    starts = rng.integers(0, n - 200, 900)
+    codes = np.concatenate([donor[starts[:, None] + np.arange(40)], (3 - donor[(starts + 160)[:, None] + np.arange(40)])[:, ::-1]])
+    lengths = np.full(1800, 40, np.int32)
+    lengths[::5] = 33  # mixed lengths: coverage's general route
+    codes = np.where(np.arange(40)[None, :] < lengths[:, None], codes, 0).astype(np.uint8)
+    mate = np.concatenate([np.arange(900, 1800), np.arange(900)])
+
+    class JRef:
+        flat, is_n, contigs = ref, np.zeros(n, bool), [Contig(name="chr1", start=0, length=n)]
+
+    js = jax_build_seqset(codes, lengths)
+    jstats, tstats = {}, {}
+    want = jdisc.discover_variants(js, JRef(), readmap=jax_build_readmap(js, codes, lengths, mate), stats=jstats)
+    ts = build_seqset(codes, lengths, device="cpu")
+    tref = reference_from_numpy(ref, np.zeros(n, bool), [("chr1", 0, n)])
+    got = tdisc.discover_variants(ts, tref, readmap=build_readmap(ts, codes, lengths, mate, device="cpu"), stats=tstats)
+    keys = ("chrom", "pos", "ref", "alt", "support", "ref_support")
+    assert [tuple(r[k] for k in keys) for r in got] == [tuple(r[k] for k in keys) for r in want]
+    assert {r["pos"] for r in got} == {701, 1701, 2301} and all(r["support"] >= 3 for r in got)
+    jdisc.write_discovery_vcf(str(tmp_path / "j.vcf"), JRef(), want)
+    tdisc.write_discovery_vcf(str(tmp_path / "t.vcf"), tref, got)
+    jv, tv = (tmp_path / "j.vcf").read_text(), (tmp_path / "t.vcf").read_text()
+    assert tv.replace("##source=biograph_tpu_torch\n", "##source=biograph_tpu\n") == jv and tv.count("\nchr1\t") == 3
