@@ -11,6 +11,11 @@ available else cpu": a caller that wants the CPU (the tests do) says so.
 
 Integer widths: entry ids, range ends, ``pop_sel`` and ``prev_cum`` are
 ``torch.int64``; sizes, ``shared`` and lengths are ``torch.int32``.
+
+The package exports what the JAX package's does: ``dna``, the SDK objects
+``BioGraph`` and ``Sequence``, ``Seqset``, ``SeqsetRanges``, ``Readmap``,
+``Reference``, ``version`` and ``build_revision``.  ``resolve_device`` is
+defined before those imports, since their modules import it from here.
 """
 
 import torch as _torch
@@ -34,3 +39,40 @@ def resolve_device(device="cuda") -> _torch.device:
             "pass device='cpu' explicitly to run on the host"
         )
     return dev
+
+
+def build_revision() -> str:
+    """The checkout's git revision, or "unknown"."""
+    import os
+    import subprocess
+
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            capture_output=True,
+            text=True,
+            timeout=5,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ).stdout.strip() or "unknown"
+    except Exception:
+        return "unknown"
+
+
+from biograph_tpu_torch.core import dna  # noqa: E402
+from biograph_tpu_torch.api import BioGraph, Sequence  # noqa: E402
+from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges  # noqa: E402
+from biograph_tpu_torch.index.readmap import Readmap  # noqa: E402
+from biograph_tpu_torch.index.reference import Reference  # noqa: E402
+
+__all__ = [
+    "dna",
+    "BioGraph",
+    "Sequence",
+    "Seqset",
+    "SeqsetRanges",
+    "Readmap",
+    "Reference",
+    "version",
+    "build_revision",
+    "resolve_device",
+]

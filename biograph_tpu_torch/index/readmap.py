@@ -21,8 +21,12 @@ routes in its order, on the readmap's device:
     ``rank`` kernel each step), then ``find_window_auto`` and
     ``probe_exact_kernel`` (``chain_window``) over the restarted lanes.
 
-The read-iteration surface (``get_prefix_reads``, ``get_reads_containing``,
-``find_overlap_reads``) is not ported yet.
+Read iteration (``get_prefix_reads``, ``get_longest_prefix_read``,
+``get_reads_containing``, ``find_overlap_reads``) returns the JAX package's
+Python lists in its order.  Where the JAX package runs one seqset query a
+length, the port runs one batch with a lane a length (``truncate_ranges``
+for the prefix reads, ``find`` for the overlaps), and the frontier of
+``get_reads_containing`` advances one level a ``push4`` launch.
 """
 
 from __future__ import annotations
@@ -183,6 +187,109 @@ class Readmap:
             "unpaired_reads": int((~paired & fwd).sum()),
             "unpaired_bases": int(lens[~paired & fwd].sum()),
         }
+
+    # ------------- read iteration (SDK surface) -------------
+
+    def _attached(self, begin, end):
+        """Every readmap entry attached to each range [begin, end): (lane,
+        readmap-entry id) int64 tensors, lane by lane, each lane's in
+        readmap order."""
+        lo = self.offsets[begin]
+        cnt = (self.offsets[end] - lo).clamp(min=0)
+        lane = torch.repeat_interleave(torch.arange(cnt.shape[0], device=self.device), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        idx = lo[lane] + torch.arange(lane.shape[0], device=self.device) - first[lane]
+        return lane, idx
+
+    @staticmethod
+    def _seq_codes(seq) -> np.ndarray:
+        if isinstance(seq, str):
+            return dna.seq_to_codes(seq)
+        if isinstance(seq, torch.Tensor):
+            seq = seq.cpu().numpy()
+        return np.asarray(seq, np.uint8)
+
+    def get_prefix_reads(self, entry, min_read_len: int = 0):
+        """Reads that are a PREFIX of the range's sequence: for every
+        truncation length m, reads of length exactly m attached to the
+        widened range.  Returns [(read_id, length)] descending by length.
+        ``entry`` is a SeqsetEntry-like (begin, end, size)."""
+        from biograph_tpu_torch.index.seqset import SeqsetRanges
+
+        size = int(entry.size)
+        lengths = range(size, max(min_read_len, self.min_read_len) - 1, -1)
+        M = len(lengths)
+        if M == 0:
+            return []
+        ms = torch.tensor(lengths, dtype=torch.int32, device=self.device)
+        r = SeqsetRanges(
+            torch.full((M,), int(entry.begin), dtype=torch.int64, device=self.device),
+            torch.full((M,), int(entry.end), dtype=torch.int64, device=self.device),
+            torch.full((M,), size, dtype=torch.int32, device=self.device),
+        )
+        t = self.seqset.d.truncate_ranges(r, ms)
+        lane, idx = self._attached(t.begin, t.end)
+        keep = self.read_lengths[idx] == ms[lane]
+        return list(zip(self.read_ids[idx[keep]].tolist(), ms[lane[keep]].tolist()))
+
+    def get_longest_prefix_read(self, entry):
+        reads = self.get_prefix_reads(entry)
+        return reads[0] if reads else None
+
+    def get_reads_containing(self, seq, max_levels: int | None = None):
+        """Reads containing ``seq`` anywhere: a breadth-first leftward
+        extension whose frontier (seq with o prepended bases) advances one
+        level a ``push4`` over every frontier lane; reads attached to a
+        frontier range with read_len >= the range's size contain seq at
+        offset o.  Returns [(read_id, offset)] sorted by (offset, read_id),
+        each pair once."""
+        d = self.seqset.d
+        codes = self._seq_codes(seq)
+        L = len(codes)
+        r = d.find(
+            torch.from_numpy(codes[None, :].copy()).to(self.device),
+            torch.tensor([L], dtype=torch.int32, device=self.device),
+        )
+        if not bool(r.begin[0] < r.end[0]):
+            return []
+        out = set()
+        max_levels = self.max_read_len - L if max_levels is None else max_levels
+        for level in range(max_levels + 1):
+            lane, idx = self._attached(r.begin, r.end)
+            keep = self.read_lengths[idx] >= r.size[lane]
+            out.update((rid, level) for rid in self.read_ids[idx[keep]].tolist())
+            if level == max_levels or r.begin.shape[0] == 0:
+                break
+            nb4, ne4 = d.push4(r)
+            nb, ne = nb4.reshape(-1), ne4.reshape(-1)
+            live = nb < ne
+            r = type(r)(nb[live], ne[live], torch.repeat_interleave(r.size + 1, 4)[live])
+        return sorted(out, key=lambda t: (t[1], t[0]))
+
+    def find_overlap_reads(self, seq, min_overlap: int = 20):
+        """Reads whose PREFIX matches a SUFFIX of ``seq`` with overlap >=
+        min_overlap (the assembly extension query).  Returns [(read_id,
+        overlap)] descending by overlap, each read once, at its longest."""
+        codes = self._seq_codes(seq)
+        L = len(codes)
+        ms = list(range(min(L, self.max_read_len), min_overlap - 1, -1))
+        if not ms:
+            return []
+        # one find a suffix length, all in one batch (shorter suffixes padded)
+        width = max(ms)
+        suf = np.zeros((len(ms), width), np.uint8)
+        for i, m in enumerate(ms):
+            suf[i, :m] = codes[L - m :]
+        m_t = torch.tensor(ms, dtype=torch.int32, device=self.device)
+        r = self.seqset.d.find(torch.from_numpy(suf).to(self.device), m_t)
+        lane, idx = self._attached(r.begin, r.end)
+        keep = self.read_lengths[idx] >= m_t[lane]
+        out, seen = [], set()
+        for rid, i in zip(self.read_ids[idx[keep]].tolist(), lane[keep].tolist()):
+            if rid not in seen:
+                seen.add(rid)
+                out.append((rid, ms[i]))
+        return out
 
     # ------------- coverage (sequence-level queries) -------------
 

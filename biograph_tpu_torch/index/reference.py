@@ -2,9 +2,9 @@
 
 Counterpart of ``biograph_tpu/index/reference.py``: a FASTA is flattened
 into one code array with contig extents and an N mask; ``save``/``load``
-write the same artifact as the JAX package's.  Not ported yet: opening a
-BWA ``.pac``/``.ann``/``.amb`` reference dir (it needs ``io/pac.py``) and
-``make_range`` (it needs the SDK surface, ``api.py``).
+write the same artifact as the JAX package's; ``make_range`` gives the
+SDK's ``ReferenceRange``.  Not ported yet: opening a BWA
+``.pac``/``.ann``/``.amb`` reference dir (it needs ``io/pac.py``).
 """
 
 from __future__ import annotations
@@ -80,6 +80,15 @@ class Reference:
                 off = int(off)
                 return Contig(name=name, start=c.start + off, length=c.length - off)
         raise KeyError(name)
+
+    def make_range(self, name: str, start: int, end: int):
+        """ReferenceRange handle on [start, end) of contig ``name``."""
+        from biograph_tpu_torch.api import ReferenceRange
+
+        c = self.contig_by_name(name)
+        if not (0 <= start <= end <= c.length):
+            raise ValueError(f"{name}:{start}-{end} outside contig of {c.length}")
+        return ReferenceRange(self, name, start, end)
 
     def get_codes(self, name: str, start: int = 0, end: int | None = None) -> np.ndarray:
         c = self.contig_by_name(name)

@@ -24,16 +24,18 @@ gather in one launch), ``rank``, ``push_front``, ``find`` and
 ``sizes_at`` (gather_sizes) and the find-window chains of
 ``index/probes.py`` (chain_window) all read that table when the tensors are
 on the card, whatever the batch size and whatever the seqset's size; the
-remaining primitives are plain tensor code.
+remaining primitives are plain tensor code.  The widen family
+(``truncate_ranges``, ``pop_front_ranges``, ``push_front_drop``) answers its
+nearest-shared-below queries through ``ops/ltsearch.py``'s ``LtSearch``
+over ``shared``, built on the engine's device by the first query that reads
+it; ``push_front_drop`` ranks both ends of its ranges in one launch of the
+rank kernel.
 
 Representation: ``prev_words`` is ``torch.int32`` [4, nw] holding the 32-bit
 words bit-reinterpreted; ``save`` writes them as ``uint32`` so the artifact
 is byte-compatible with the JAX package's.  ``prev_words`` and ``prev_cum``
 are kept for ``save`` and for building tables; after ``load`` they stay on
 the host.
-
-Not ported yet (they need ``ops/ltsearch.py``): ``push_front_drop``,
-``pop_front_ranges``, ``truncate_ranges``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch
 from biograph_tpu_torch import resolve_device
 from biograph_tpu_torch.core import container, dna
 from biograph_tpu_torch.ops import rank4 as rank4_ops
+from biograph_tpu_torch.ops.ltsearch import LtSearch
 
 
 class SeqsetRanges(NamedTuple):
@@ -112,6 +115,22 @@ class Seqset:
         )
 
     # ---------------- convenience (small queries) -------------
+
+    def size(self) -> int:
+        return self.n_entries
+
+    @property
+    def read_len(self) -> int:
+        return self.max_entry_len
+
+    def ctx_begin(self) -> SeqsetRanges:
+        """The range of the empty sequence: every entry."""
+        dev = self.device
+        return SeqsetRanges(
+            begin=torch.zeros(1, dtype=torch.int64, device=dev),
+            end=torch.full((1,), self.n_entries, dtype=torch.int64, device=dev),
+            size=torch.zeros(1, dtype=torch.int32, device=dev),
+        )
 
     def find_str(self, seq: str):
         """Find a single sequence; returns (begin, end, size) ints."""
@@ -183,6 +202,12 @@ class _SeqsetDevice:
     def device(self) -> torch.device:
         return self.entry_sizes.device
 
+    @cached_property
+    def shared_lt(self) -> LtSearch:
+        """LtSearch over ``shared``, built here by the first query that
+        needs it (the widen family, the wavefront without trunc tables)."""
+        return LtSearch.build(self.shared)
+
     def _t(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
@@ -219,15 +244,9 @@ class _SeqsetDevice:
         """Batched push_front.  Lanes with invalid input ranges come back
         as (begin, begin, size).  Both range ends are ranked in one launch
         of the rank kernel on the card."""
-
-        def rank_ends(b, begin, end):
-            return rank4_ops.rank(
-                self.rank_blocks, b.contiguous(), begin.contiguous(), end.contiguous()
-            )
-
         return SeqsetRanges(
             *rank4_ops.push_front_over(
-                rank_ends, self.entry_sizes, self.fixed, r.begin, r.end, r.size,
+                self._rank_ends, self.entry_sizes, self.fixed, r.begin, r.end, r.size,
                 self._t(b, torch.int64),
             )
         )
@@ -316,3 +335,116 @@ class _SeqsetDevice:
             out[:, i] = self.entry_first_base(cur).to(torch.uint8)
             cur = self.entry_pop_front(cur)
         return out
+
+    # -- the widen family: nearest-shared-below searches (LtSearch) --
+
+    def _widen(self, begin, end, size):
+        """Expand [begin, end) to the maximal run where shared >= size: the
+        largest j <= begin and the smallest j >= end with shared[j] < size
+        (n if none)."""
+        lt = self.shared_lt
+        nb = lt.next_backward_lt(begin + 1, size).clamp(min=0)
+        ne = lt.next_forward_lt(end - 1, size)
+        return nb, ne
+
+    def truncate_ranges(self, r: SeqsetRanges, new_size) -> SeqsetRanges:
+        """Shorten each lane's sequence to new_size bases, widening the range
+        to every entry sharing that prefix.  Lanes already <= new_size pass
+        through unchanged."""
+        new_size = self._t(new_size, torch.int32).expand(r.size.shape)
+        need = r.size > new_size
+        tgt = torch.where(need, new_size, r.size)
+        nb, ne = self._widen(r.begin, r.end, tgt.clamp(min=1))
+        return SeqsetRanges(
+            begin=torch.where(need, nb, r.begin),
+            end=torch.where(need, ne, r.end),
+            size=tgt,
+        )
+
+    def pop_front_ranges(self, r: SeqsetRanges) -> SeqsetRanges:
+        """Drop the first base of each lane's sequence and widen to all
+        entries sharing the rest.  Popping to the empty sequence gives every
+        entry.  The pop reads ``pop_sel`` at the range's first entry, clipped
+        to the last entry (an empty range at the end has no first entry)."""
+        new_size = r.size - 1
+        popped = self.entry_pop_front(r.begin.clamp(max=self.n_entries - 1))
+        nb, ne = self._widen(popped, popped + 1, new_size.clamp(min=1))
+        empty = new_size <= 0
+        return SeqsetRanges(
+            begin=torch.where(empty, 0, nb),
+            end=torch.where(empty, self.n_entries, ne),
+            size=new_size.clamp(min=0),
+        )
+
+    def push_front_drop(self, r: SeqsetRanges, b, min_ctx=0) -> SeqsetRanges:
+        """Push base b onto each lane's sequence; where the result would be
+        empty (or a lone too-short entry), drop context, widening the range
+        to a shorter shared suffix through nearest-shared-below searches,
+        until the push succeeds.  Lanes whose context would fall below
+        ``min_ctx`` come back invalid, as (0, 0, 0)."""
+        b = self._t(b, torch.int64).contiguous()
+        n = self.n_entries
+        fixed_b = self.fixed[b]
+        # updated in place below: copies, never the caller's tensors
+        o_begin, o_end = r.begin.clone(), r.end.clone()
+        o_ctx = r.size.to(torch.int32, copy=True)
+        min_ctx = self._t(min_ctx, torch.int32).expand(b.shape)
+        sub_b, sub_e = self._rank_ends(b, o_begin, o_end)
+        dead = (o_ctx < min_ctx) | (o_begin >= o_end)
+
+        def need_drop(fixed_b, sub_b, sub_e, o_ctx):
+            first = (fixed_b + sub_b).clamp(0, n - 1)
+            lone_short = (sub_b + 1 == sub_e) & (self.entry_sizes[first] < o_ctx + 1)
+            return (sub_b == sub_e) | lone_short
+
+        done = dead | ~need_drop(fixed_b, sub_b, sub_e, o_ctx)
+        # one iteration drops context once on the lanes not yet done (a done
+        # lane is frozen, so the rest need not be computed); the loop ends
+        # when every lane is done
+        while True:
+            act = torch.nonzero(~done)[:, 0]
+            if act.shape[0] == 0:
+                break
+            fb, bb, ob, oe, oc, sb, se = (
+                x[act] for x in (fixed_b, b, o_begin, o_end, o_ctx, sub_b, sub_e)
+            )
+            first = (fb + sb).clamp(0, n - 1)
+            sh_b = self.shared[ob.clamp(0, n - 1)]
+            sh_e = self.shared[oe.clamp(0, n - 1)]
+            drop = torch.maximum(sh_b, torch.where(oe >= n, 0, sh_e)).to(torch.int32)
+            drop = torch.where(sb != se, torch.maximum(drop, self.entry_sizes[first] - 1), drop)
+            upd_b = (ob > 0) & (sh_b >= drop)
+            upd_e = (oe < n) & (sh_e >= drop)
+            nb = self.shared_lt.next_backward_lt(torch.where(upd_b, ob, 1), drop).clamp(min=0)
+            ne = self.shared_lt.next_forward_lt(torch.where(upd_e, oe, n - 1), drop)
+            newly_dead = (drop < min_ctx[act]) | ~(upd_b | upd_e | (drop != oc))
+            ob2 = torch.where(upd_b, nb, ob)
+            oe2 = torch.where(upd_e, ne, oe)
+            rb, re = self._rank_ends(bb, ob2, oe2)
+            sb2 = torch.where(upd_b, rb, sb)
+            se2 = torch.where(upd_e, re, se)
+            still = need_drop(fb, sb2, se2, drop)
+            dead[act] = newly_dead
+            done[act] = newly_dead | ~still
+            keep = ~newly_dead
+            o_begin[act] = torch.where(keep, ob2, ob)
+            o_end[act] = torch.where(keep, oe2, oe)
+            o_ctx[act] = torch.where(keep, drop, oc)
+            sub_b[act] = torch.where(keep, sb2, sb)
+            sub_e[act] = torch.where(keep, se2, se)
+        new_begin = fixed_b + sub_b
+        new_end = fixed_b + sub_e
+        kick = (new_begin < new_end) & (self.entry_sizes[new_begin.clamp(0, n - 1)] < o_ctx + 1)
+        new_begin = new_begin + kick.to(new_begin.dtype)
+        return SeqsetRanges(
+            begin=torch.where(dead, 0, new_begin),
+            end=torch.where(dead, 0, new_end),
+            size=torch.where(dead, 0, o_ctx + 1),
+        )
+
+    def _rank_ends(self, b, begin, end):
+        """(rank_b(begin), rank_b(end)) in one launch of the rank kernel on
+        the card."""
+        return rank4_ops.rank(
+            self.rank_blocks, b.contiguous(), begin.contiguous(), end.contiguous()
+        )

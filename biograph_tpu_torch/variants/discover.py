@@ -14,11 +14,19 @@ Stages:
                      (a bitmap over all 4^12 12-mers, a seqset property)
   2. front end     - a min_anchor_ctx find-window filter and the exact
                      longest-window bisection, every lane one chain of the
-                     chain_window kernel
+                     chain_window kernel.  Without the prescreen
+                     (min_anchor_ctx < 12, or ``NO_PRESCREEN``) the dense
+                     front end runs first a restart chain over every
+                     position (``probes.probe_ranges``, the rank kernel
+                     each step) and then the filter and the bisection over
+                     the lanes that restarted
   3. anchors       - the 4-base branch probe (push4) at every lane
   4. wavefront     - beam search: each step pushes 4 candidate bases a lane
                      (push4), keeps the child its policy ranks, truncates to
-                     probe_ctx, and tests rejoin against a span k-mer table
+                     probe_ctx (two gathers from the trunc tables, or, when
+                     the memory plan drops them, ``truncate_ranges`` through
+                     the seqset's LtSearch), and tests rejoin against a span
+                     k-mer table
   5. scoring       - with a readmap: each assembly's read coverage along its
                      alt path and its reference span (``score_assemblies``
                      over ``Readmap.coverage``), the min_alt_support
@@ -41,12 +49,12 @@ prescreened lane); its CPU route (the rolling-hash filter and the push4
 pre-gate) gives the same anchors.  Scoring takes the JAX package's
 accelerator form, one padded coverage batch, on every device.
 
-Not ported yet, each raising ``NotImplementedError`` where a call would need
-it: the dense front end for ``min_anchor_ctx < 12`` (the restart masks of
-``discover.py``'s non-prescreen route), in-loop truncation without the trunc
-tables (``ops/ltsearch.py``), and the sharded engine.  The JAX package's
+The sharded engine is not ported (the port has no ``engine`` argument), nor
+are the walk engines of the JAX package's front end.  The JAX package's
 block, chunk, interleaved and whole-device wavefront dispatch loops are
-replaced by one host loop with done-lane compaction.
+replaced by one host loop with done-lane compaction.  Its environment
+switches are module constants here: ``NO_PRESCREEN`` (``BGT_NO_PRESCREEN``)
+and ``BUDGET_BYTES`` (``BGT_HBM_BUDGET_BYTES``).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from biograph_tpu_torch.index import probes
 from biograph_tpu_torch.index.readmap import Readmap
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops.align_dp import align_blocks_batch
+from biograph_tpu_torch.ops.ltsearch import BLOCK as LT_BLOCK
 
 
 @dataclass
@@ -133,8 +142,12 @@ CHECK_EVERY = 48  # beam steps between polls of the undone count
 WAVE_LANES = 4096  # anchors pooled into one beam group, at least
 WAVE_COMPACT_MIN = 512  # never shrink a beam state below this width
 SPAN_TABLE_CAP = 1 << 23  # shared span table rows: 134 MB as two int64 arrays
-# what the memory plan budgets against when the seqset lies on the host
-HOST_BUDGET_BYTES = 4 << 30
+# the memory plan's budget in bytes: None budgets half the card's memory for
+# a seqset on the card and 4 GiB for one on the host; a number stands for
+# either (BGT_HBM_BUDGET_BYTES in the JAX package)
+BUDGET_BYTES = None
+# True takes the dense front end at any min_anchor_ctx (BGT_NO_PRESCREEN)
+NO_PRESCREEN = False
 _SENTINEL = torch.iinfo(torch.int64).max  # pad rows of the span tables
 
 
@@ -172,24 +185,30 @@ class _StageClock:
 def _discovery_memory_plan(ss: Seqset, G: int, stats: dict | None = None):
     """Budget discovery's device-resident working set: the seqset core, the
     prescreen bitmap, the doubled reference, the two n-entry trunc tables
-    and the shared rejoin span table, against half the card's memory
-    (``torch.cuda.mem_get_info``) or, for a seqset on the host,
-    ``HOST_BUDGET_BYTES``.  The core is what the seqset holds on the query
-    device: the engine's tensors (rank-block table, entry sizes, shared,
-    pop_sel, fixed) and the stored rank pair where it lies there too.  Over
+    and the shared rejoin span table, against ``BUDGET_BYTES`` or else half
+    the card's memory (``torch.cuda.mem_get_info``), 4 GiB for a seqset on
+    the host.  The core is what the seqset holds on the query device: the
+    engine's tensors (rank-block table, entry sizes, shared, pop_sel,
+    fixed), its LtSearch over shared (counted whether or not a query has
+    built it yet) and the stored rank pair where it lies there too.  Over
     budget the shared span table shrinks or goes first (groups then build
-    their own bounded tables); a plan without trunc tables cannot run yet
-    (``discover_variants`` raises).  The plan is recorded in
+    their own bounded tables), then the trunc tables, and the wavefront
+    truncates through the LtSearch.  The plan is recorded in
     stats["memory_plan"]."""
-    if ss.device.type == "cuda":
+    if BUDGET_BYTES is not None:
+        budget = BUDGET_BYTES
+    elif ss.device.type == "cuda":
         budget = torch.cuda.mem_get_info(ss.device)[1] // 2
     else:
-        budget = HOST_BUDGET_BYTES
+        budget = 4 << 30
     n = int(ss.n_entries)
     d = ss.d
     held = [d.fixed, d.rank_blocks, d.entry_sizes, d.shared, d.pop_sel]
     held += [t for t in (ss.prev_words, ss.prev_cum) if t.device == ss.device]
     core = sum(t.numel() * t.element_size() for t in held)
+    # the LtSearch: padded values, block minima, the walk's two level tables
+    nblk = -(-n // LT_BLOCK)
+    core += 4 * (nblk * LT_BLOCK + nblk + 2 * nblk * ((nblk - 1).bit_length() + 1))
     core += 1 << (2 * _PRESCREEN_K)  # the prescreen bitmap, one byte a k-mer
     ref2 = 2 * G  # doubled fwd++rc reference, uint8
     trunc = 16 * n  # prev_lt + next_lt, int64 each
@@ -271,8 +290,8 @@ def use_prescreen(opt) -> bool:
     """K-mer coverage prescreen gate: sound whenever anchors require at
     least K bases of context (a window of length >= min_anchor_ctx >= K
     ending at p contains the K-mer ending at p, so un-hit positions can
-    never anchor)."""
-    return opt.min_anchor_ctx >= _PRESCREEN_K
+    never anchor).  ``NO_PRESCREEN`` opts out (to time the dense route)."""
+    return opt.min_anchor_ctx >= _PRESCREEN_K and not NO_PRESCREEN
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +301,8 @@ def use_prescreen(opt) -> bool:
 
 def _anchor_scan_at(d, ref2, pos, begin, end, size, min_anchor_ctx: int,
                     min_branch_width: int, cap):
-    """Branch probe + anchor detection over a compact lane set.
+    """Branch probe + anchor detection over a lane set: the prescreen's
+    compact lanes, or a dense batch's contiguous positions.
 
     One push4 gives all four children of every lane's probe range; lanes
     where a non-reference base has a continuation (and enough context)
@@ -386,6 +406,113 @@ def _find_anchors(ss, ref2_dev, segments, opt, stats, clock, G):
             anchor_parts[rev_half] = tuple(c[m] for c in live)
     clock.mark("anchors")
     return anchor_parts, hit_pos
+
+
+def _dense_batches(segments, opt, lo: int, hi: int):
+    """The dense front end's probe batches: (rev_half, ctx_lo, p0, p_last,
+    seg_hi) of P contiguous positions each, over every segment.  P is the
+    JAX package's accelerator width, min(max(next_pow2(span), 4096),
+    next_pow2(scaffold_split_size)), on every device."""
+    span = max(hi - lo, 1)
+    P = min(max(_next_pow2(span), 4096), _next_pow2(opt.scaffold_split_size))
+    batches = [
+        (rev_half, ctx_lo, p0, p_last, seg_hi)
+        for rev_half, ctx_lo, p_first, p_last, seg_hi in segments
+        for p0 in range(p_first, p_last + 1, P)
+    ]
+    return batches, P
+
+
+def _dense_probes(d, ref2_dev, batches, P: int, opt, clock):
+    """Waves 1-5 of the dense front end: each batch's [begin, end, size] of
+    the longest window ending at each of its P positions.
+
+    1. the restart chain (``probes.probe_ranges``) over every position;
+    2. the restart masks: lanes past the segment's last probe, or too close
+       to its start to reach min_anchor_ctx of context, can never anchor;
+    3. over the restarted lanes, the min_anchor_ctx find-window filter (a
+       lane whose longest window is shorter cannot pass the anchor gate,
+       and its chain state stands);
+    4-5. the exact bisection (``probe_exact_kernel``) on the survivors,
+       scattered back into the batch's state."""
+    probe_h = [
+        list(probes.probe_ranges(d, ref2_dev, p0, ctx_lo, P, opt.probe_ctx))
+        for _, ctx_lo, p0, _, _ in batches
+    ]
+    clock.mark("probe_dispatch")
+    lane = np.arange(P)
+    rst_list = [
+        probes.fetch_mask(h[3])
+        & (p0 + lane <= p_last)
+        & (p0 + lane - ctx_lo + 1 >= opt.min_anchor_ctx)
+        for (_, ctx_lo, p0, p_last, _), h in zip(batches, probe_h)
+    ]
+    clock.mark("probe_masks")
+    filt = {}
+    for i, rst in enumerate(rst_list):
+        if rst.any():
+            p0 = batches[i][2]
+            idx = torch.from_numpy(np.nonzero(rst)[0]).to(ref2_dev.device)
+            pos = idx + p0
+            filt[i] = (idx, pos, probes.find_window_auto(d, ref2_dev, pos, opt.min_anchor_ctx, opt.probe_ctx))
+    clock.mark("probe_filter")
+    for i, (idx, pos, (fb, fe, fs)) in filt.items():
+        sel = torch.nonzero(fb < fe)[:, 0]
+        if sel.shape[0] == 0:
+            continue
+        b2, e2, s2 = probes.probe_exact_kernel(
+            d, ref2_dev, pos[sel], batches[i][1], opt.probe_ctx,
+            opt.min_anchor_ctx, (fb[sel], fe[sel], fs[sel]),
+        )
+        di = idx[sel]
+        h = probe_h[i]
+        h[0][di], h[1][di], h[2][di] = b2, e2, s2
+    clock.mark("probe_exact")
+    return [h[:3] for h in probe_h]
+
+
+def _dense_anchors(ss, ref2_dev, segments, opt, stats, clock, lo: int, hi: int):
+    """The dense front end, for ``not use_prescreen(opt)``: waves 1-5 over
+    every position of every segment (``_dense_probes``), then the anchor
+    scan batch by batch, at most MAXA anchors a batch.  Returns the
+    anchors' numpy columns (pos, alt base, begin, end, size) by orientation
+    (False the forward half, True the reverse-complement half), each
+    (pos, base) once."""
+    d = ss.d
+    batches, P = _dense_batches(segments, opt, lo, hi)
+    probed = _dense_probes(d, ref2_dev, batches, P, opt, clock)
+    anchor_parts: dict = {}
+    lane = torch.arange(P, dtype=torch.int64, device=ref2_dev.device)
+    for (rev_half, _, p0, _, seg_hi), (b, e, s) in zip(batches, probed):
+        # the JAX package's dense scan gates (pos + 1) <= min(seg_hi, p0 + P)
+        # over contiguous lanes: the compact scan with that bound as cap
+        cap = torch.full_like(lane, min(seg_hi, p0 + P))
+        n_raw, stacked = _anchor_scan_at(
+            d, ref2_dev, p0 + lane, b, e, s, opt.min_anchor_ctx,
+            opt.min_branch_width, cap,
+        )
+        live = stacked.cpu().numpy()
+        stats["anchors_found"] += n_raw
+        if n_raw > live.shape[1]:
+            stats["anchors_truncated"] += n_raw - live.shape[1]
+            warnings.warn(
+                f"discovery: {n_raw - live.shape[1]} anchors over the "
+                f"{MAXA}-per-batch cap were dropped; raise MAXA"
+            )
+        if live.shape[1]:
+            anchor_parts.setdefault(rev_half, []).append(tuple(live))
+    clock.mark("anchors")
+    return {half: _pooled(parts) for half, parts in anchor_parts.items()}
+
+
+def _pooled(parts):
+    """One orientation's anchor parts as one set of columns, each (pos,
+    base) once, in first-seen order."""
+    anchors = tuple(np.concatenate(cols) for cols in zip(*parts))
+    _, uidx = np.unique(np.stack([anchors[0], anchors[1]]), axis=1, return_index=True)
+    if len(uidx) < len(anchors[0]):
+        anchors = tuple(a[np.sort(uidx)] for a in anchors)
+    return anchors
 
 
 # ---------------------------------------------------------------------------
@@ -543,14 +670,10 @@ def _pick(x, col):
 def _wavefront_body(d, packed, prev_lt, next_lt, n_packed, st, step_i: int,
                     MAXP: int, k: int, min_w: int, probe_ctx: int,
                     pos_bits: int):
-    """One beam-extension step.  ``packed`` is the (K, key2) span table pair.
-    The state's path matrix is updated in place; every other tensor of the
-    returned state is new."""
-    if prev_lt is None:
-        raise NotImplementedError(
-            "the wavefront without trunc tables truncates through LtSearch "
-            "(ops/ltsearch.py), which is not ported yet"
-        )
+    """One beam-extension step.  ``packed`` is the (K, key2) span table pair;
+    prev_lt and next_lt the trunc tables, or None to truncate through
+    ``truncate_ranges``.  The state's path matrix is updated in place; every
+    other tensor of the returned state is new."""
     kmask = (1 << (2 * k)) - 1
     done = st["done"]
     cur = SeqsetRanges(st["begin"], st["end"], st["size"])
@@ -572,13 +695,17 @@ def _wavefront_body(d, packed, prev_lt, next_lt, n_packed, st, step_i: int,
     begin = torch.where(ext, _pick(Bc, nb), cur.begin)
     end = torch.where(ext, _pick(Ec, nb), cur.end)
     size = torch.where(ext, cur.size + 1, cur.size)
-    # truncate to probe_ctx via the constant-threshold widen tables: the
-    # semantics of truncate_ranges(., probe_ctx) at two gathers per lane
-    need = size > probe_ctx
-    wb, we = d.trunc_gather(prev_lt, next_lt, begin, end)
-    begin = torch.where(need, wb, begin)
-    end = torch.where(need, we, end)
-    size = torch.where(need, probe_ctx, size)
+    if prev_lt is None:
+        # no room for the trunc tables: two LtSearch queries a lane
+        begin, end, size = d.truncate_ranges(SeqsetRanges(begin, end, size), probe_ctx)
+    else:
+        # truncate to probe_ctx via the constant-threshold widen tables: the
+        # semantics of truncate_ranges(., probe_ctx) at two gathers per lane
+        need = size > probe_ctx
+        wb, we = d.trunc_gather(prev_lt, next_lt, begin, end)
+        begin = torch.where(need, wb, begin)
+        end = torch.where(need, we, end)
+        size = torch.where(need, probe_ctx, size)
     path = st["path"]
     path[:, step_i] = torch.where(ext, nb.to(torch.uint8), path[:, step_i])
     path_len = torch.where(ext, step_i + 1, st["path_len"])
@@ -803,23 +930,26 @@ def wavefront_assemble(
     stats: dict | None = None,
     ref_limit: int | None = None,
     span_cap: int = SPAN_TABLE_CAP,
+    trunc: bool = True,
 ) -> List[Assembly]:
     """Extend alt branches through the seqset; rejoin to reference.
 
     anchors: (a_pos, ab, begin, end, size) numpy columns, the compact
     per-anchor probe ranges of the anchor scan.  ref_dev: the doubled
     reference on the seqset's device; span k-mer tables are built from it
-    there.  hit_pos: the prescreen's hit positions (``_candidate_lanes``); a
-    table of their rows stands in for the dense span table when it is
-    smaller.  span_cap: the most rows a shared dense table may have (the
-    memory plan's ``span_table_cap``)."""
+    there.  hit_pos: the prescreen's hit positions (``_candidate_lanes``), or
+    None after the dense front end; a table of their rows stands in for the
+    dense span table when it is smaller.  span_cap: the most rows a shared
+    dense table may have (the memory plan's ``span_table_cap``).  trunc:
+    the plan's ``use_trunc_tables``; without them each beam step truncates
+    through ``truncate_ranges``."""
     d = ss.d
     n_anchor = len(anchors[0])
     if n_anchor == 0:
         return []
     if ref_limit is None:
         ref_limit = ref_dev.shape[0]
-    trunc_tables = _trunc_tables(ss, opt.probe_ctx)
+    trunc_tables = _trunc_tables(ss, opt.probe_ctx) if trunc else (None, None)
 
     # group anchors by genome position; the (K, key2) span table puts no
     # limit on a group's genome span, so groups are sized by lane count only
@@ -843,7 +973,11 @@ def wavefront_assemble(
         # every reachable query k-mer is read content whose last
         # PRESCREEN_K bases hit, so span occurrences only start at
         # hit_pos - (k-1): a smaller table with identical answers
-        if _PRESCREEN_K <= k_rej <= opt.probe_ctx and hit_pos.shape[0] < npk_all:
+        if (
+            hit_pos is not None
+            and _PRESCREEN_K <= k_rej <= opt.probe_ctx
+            and hit_pos.shape[0] < npk_all
+        ):
             K_t, key2_t, n_real = _span_kmers_compact_dev(
                 ref_dev, lo_all, span_all, k_rej,
                 pos_abs=hit_pos - (k_rej - 1),
@@ -958,7 +1092,8 @@ def discover_variants(
     place) reports anchor and assembly truncation so dense regions can't
     drop candidates silently, the memory plan, ``pair_gated``, and
     ``stage_s``: seconds in ``probe_filter``, ``probe_exact``, ``anchors``,
-    ``wavefront``, ``score`` (with a readmap) and ``extract``, each read
+    ``wavefront``, ``score`` (with a readmap) and ``extract``, and on the
+    dense front end also ``probe_dispatch`` and ``probe_masks``, each read
     after the device has drained.  out_assemblies: optional list; the
     deduped (with a readmap: scored and gated) Assembly records are
     appended to it.
@@ -967,12 +1102,6 @@ def discover_variants(
     ref_support, aid), sorted by position.  Without a readmap ``support`` is
     the narrowest range along the alt path and ``ref_support`` is 0."""
     opt = opt or DiscoverOptions()
-    if not use_prescreen(opt):
-        raise NotImplementedError(
-            f"min_anchor_ctx < {_PRESCREEN_K} needs the dense front end "
-            "(the restart masks of the non-prescreen route), which is not "
-            "ported yet"
-        )
     dev = ss.device
     if readmap is not None and readmap.device != dev:
         raise ValueError(
@@ -988,19 +1117,16 @@ def discover_variants(
     stats.setdefault("anchors_truncated", 0)
     stats.setdefault("assemblies_truncated", 0)
     plan = _discovery_memory_plan(ss, G, stats)
-    if not plan["use_trunc_tables"]:
-        raise NotImplementedError(
-            "the memory plan leaves no room for the trunc tables, and "
-            "in-loop truncation through LtSearch (ops/ltsearch.py) is not "
-            "ported yet"
-        )
     ref2 = np.concatenate([ref, (3 - ref[::-1]).astype(np.uint8)])
     ref2_dev = torch.from_numpy(ref2).to(dev)
     segments = _segments(opt, lo, hi, G)
     if not segments:
         return []
     clock = _StageClock(dev, stats.setdefault("stage_s", {}))
-    anchor_parts, hit_pos = _find_anchors(ss, ref2_dev, segments, opt, stats, clock, G)
+    if use_prescreen(opt):
+        anchor_parts, hit_pos = _find_anchors(ss, ref2_dev, segments, opt, stats, clock, G)
+    else:
+        anchor_parts, hit_pos = _dense_anchors(ss, ref2_dev, segments, opt, stats, clock, lo, hi), None
     # wavefront, once per orientation over its pooled anchors
     all_asms: List[Assembly] = []
     for rev_half, anchors in anchor_parts.items():
@@ -1008,6 +1134,7 @@ def discover_variants(
             ss, anchors, opt, ref2_dev, hit_pos, stats=stats,
             ref_limit=(2 * G if rev_half else G),
             span_cap=plan["span_table_cap"],
+            trunc=plan["use_trunc_tables"],
         )
         if rev_half:
             asms = [

@@ -31,7 +31,20 @@ hash route; a paired library (a 400-base insertion, mates at fragment 260)
 is discovered on the card and on a CPU copy with identical records, and its
 insertion culled on both by a gate that asks for more pairs than exist; so is
 coverage on a library of mixed read lengths (its general route: probe_ranges,
-then the chain kernel).  Last, the rank kernels are timed side by side on a
+then the chain kernel).  The scored call then runs twice more, cold and
+warm, each held to the same records: by the dense front end
+(``discover.NO_PRESCREEN``: the restart chain through rank over every
+position, the filter and the bisection through chain_window over the lanes
+that restarted), with rank and push4 then held against their plain versions
+on its lanes; and with a memory plan that leaves no room for the trunc
+tables (``discover.BUDGET_BYTES``), so each beam step truncates through the
+seqset's LtSearch.  The widen family (truncate_ranges, pop_front_ranges,
+push_front_drop) runs over the ranges find gave every oriented read, and
+LtSearch on 2^20 random queries, on the card and on a CPU copy of the store
+with identical answers; a .bgt of the store and the readmap is opened with
+BioGraph on the card and on the CPU, and find, SeqsetEntry.pop_front and
+truncate and read iteration on a sample of reads give identical answers.
+Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
 versions too.
@@ -49,6 +62,7 @@ kernels.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -68,6 +82,7 @@ from biograph_tpu_torch.index.readmap import Readmap
 from biograph_tpu_torch.io.vcf import read_vcf
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops import _build, rank4 as rank4_ops, rank_cum as rank_cum_ops
+from biograph_tpu_torch.ops.ltsearch import LtSearch
 from biograph_tpu_torch.variants import discover as disc
 
 SEED = 12345
@@ -1273,6 +1288,18 @@ def read_records_file(path=RECORDS_FILE):
     return out
 
 
+def require_records(name, records, want):
+    """The records must be ``want``, the JAX CPU leg's, tuple for tuple; the
+    first six of each difference are printed."""
+    got = [key_of(r) for r in records]
+    if got != want:
+        lost, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+        raise AssertionError(
+            f"{name}: {len(got)} records, the JAX CPU leg {len(want)}; {len(lost)} of its records "
+            f"missing (first {lost[:6]}), {len(extra)} not among them (first {extra[:6]})"
+        )
+
+
 def discover_scored_phase(ss, rm, reference, want, build_s, reads):
     """discover_variants with the readmap over the whole genome on the card,
     cold (the window hash index is built and cached on the readmap) and
@@ -1287,13 +1314,7 @@ def discover_scored_phase(ss, rm, reference, want, build_s, reads):
         if missing:
             raise AssertionError(f"scored discovery launched no {missing} kernel")
         out[run] = {"seconds": seconds, "stage_s": stats["stage_s"], "launches": launches}
-    got = [key_of(r) for r in records]
-    if got != want:
-        lost, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
-        raise AssertionError(
-            f"scored discovery: {len(got)} records, the JAX CPU leg {len(want)}; "
-            f"{len(lost)} of its records missing (first {lost[:3]}), {len(extra)} not among them (first {extra[:3]})"
-        )
+    require_records("scored discovery", records, want)
     with tempfile.TemporaryDirectory() as tmp:
         disc.write_discovery_vcf(tmp + "/scored.vcf", reference, records, opt=disc.DiscoverOptions(**DISCOVER_OPT))
         back = read_vcf(tmp + "/scored.vcf")
@@ -1476,6 +1497,187 @@ def scored_checks(dev, ss, rm, rm_cpu, reference, asms):
     return result, slab, chained["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the dense front end, the wavefront without trunc tables, the widen family,
+# the SDK
+# ---------------------------------------------------------------------------
+
+TINY_BUDGET_BYTES = 1 << 16  # a memory plan with no room for the trunc tables
+WIDEN_SIZES = (25, 1)  # truncate_ranges targets: probe_ctx, and the longest walks
+LT_QUERIES = 1 << 20
+
+
+@contextlib.contextmanager
+def discovery_constants(**values):
+    """The discovery module's constants set as given, restored after."""
+    saved = {k: getattr(disc, k) for k in values}
+    try:
+        for k, v in values.items():
+            setattr(disc, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(disc, k, v)
+
+
+def scored_calls(ss, rm, reference, want, name, **constants):
+    """The scored call (discovery with the readmap) cold and warm with the
+    discovery module's constants set as given (``discovery_constants``).
+    Each call's records must be the JAX CPU leg's, tuple for tuple, and each
+    must launch every kernel of DISCOVER_KERNELS.  Returns (what to print,
+    the last call's stats)."""
+    out = {}
+    with discovery_constants(**constants):
+        for run in ("cold", "warm"):
+            records, stats, seconds, launches = run_discover(ss, reference, readmap=rm)
+            require_records(name, records, want)
+            missing = [k for k in DISCOVER_KERNELS if launches[k] == 0]
+            if missing:
+                raise AssertionError(f"{name} launched no {missing} kernel")
+            out[run] = {"seconds": seconds, "stage_s": stats["stage_s"], "launches": launches}
+    out.update(records=len(want), anchors_found=stats["anchors_found"], memory_plan=stats["memory_plan"],
+               beam_steps=stats.get("wave_steps", 0))
+    return out, stats
+
+
+def dense_kernel_holds(ss, reference):
+    """The dense front end's first batch replayed with rank held against its
+    plain version at every step of the restart chain (1 M lanes a step) and
+    push4 on the dense anchor scan's lanes."""
+    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+    dev = ss.device
+    held = HeldEngine(ss.d)
+    G = len(reference.flat)
+    ref2_dev = torch.from_numpy(np.concatenate([reference.flat, (3 - reference.flat[::-1]).astype(np.uint8)])).to(dev)
+    batches, P = disc._dense_batches(disc._segments(opt, 0, G, G), opt, 0, G)
+    (_, _, p0, _, seg_hi), = first = batches[:1]
+    (b, e, s), = disc._dense_probes(held, ref2_dev, first, P, opt, disc._StageClock(dev, {}))
+    lane = torch.arange(P, device=dev)
+    n_raw, _ = disc._anchor_scan_at(held, ref2_dev, p0 + lane, b, e, s, opt.min_anchor_ctx, opt.min_branch_width,
+                                    torch.full_like(lane, min(seg_hi, p0 + P)))
+    if not held.held["rank"] or not held.held["push4"]:
+        raise AssertionError(f"the replayed dense front end never reached a kernel: {held.held}")
+    return {"batches": len(batches), "lanes_a_batch": P, "first_batch_anchors": n_raw,
+            "rank_calls_by_lanes": held.held["rank"], "push4_calls_by_lanes": held.held["push4"]}
+
+
+def discover_dense_phase(ss, rm, reference, want):
+    """The scored call with the dense front end forced (``NO_PRESCREEN``),
+    cold and warm, its records held to the JAX CPU leg's; then rank and
+    push4 held against their plain versions on the dense route's lanes."""
+    out, _ = scored_calls(ss, rm, reference, want, "dense front end", NO_PRESCREEN=True)
+    out["holds"], out["holds"]["seconds"] = timed(lambda: dense_kernel_holds(ss, reference))
+    out["holds"]["max_abs_err"] = 0
+    return out
+
+
+def discover_no_trunc_phase(ss, rm, reference, want, with_tables):
+    """The scored call with a memory plan that drops the trunc tables (the
+    wavefront truncates through the seqset's LtSearch), cold and warm, its
+    records held to the JAX CPU leg's; the wavefront's seconds beside those
+    of ``with_tables``, the warm call with them."""
+    out, stats = scored_calls(ss, rm, reference, want, "discovery without trunc tables", BUDGET_BYTES=TINY_BUDGET_BYTES)
+    if stats["memory_plan"]["use_trunc_tables"]:
+        raise AssertionError(f"the tiny budget kept the trunc tables: {stats['memory_plan']}")
+    out["wavefront_s"] = {"without_tables_warm": out["warm"]["stage_s"]["wavefront"],
+                          "with_tables_warm": with_tables["stage_s"]["wavefront"]}
+    return out
+
+
+def require_same(name, card, cpu):
+    if not isinstance(card, tuple):
+        card, cpu = (card,), (cpu,)
+    require_equal(name, tuple(x.cpu() for x in card), tuple(cpu))
+
+
+def widen_checks(ss, ss_cpu, found):
+    """The widen family on the full store, over the ranges find gave every
+    oriented read, and LtSearch on LT_QUERIES random (pos, c): each on the
+    card and on ss_cpu, a CPU copy of the store, with identical answers.
+    Each timed on both; the card's LtSearch is built by its first query."""
+    d, dc = ss.d, ss_cpu.d
+    dev = ss.device
+    cpu = SeqsetRanges(*(x.cpu() for x in found))
+    g = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    bases = torch.randint(0, 4, found.begin.shape, generator=g)
+    out = {"ranges": int(found.begin.shape[0]), "n_entries": ss.n_entries}
+    lt, out["ltsearch_build_s"] = timed(lambda: LtSearch.build(d.shared))
+    out["ltsearch_bytes"] = sum(t.numel() * t.element_size() for t in (lt.values, lt.block_min, lt.levels))
+    calls = [(f"truncate_ranges_to_{m}", lambda d, r, b, m=m: d.truncate_ranges(r, m)) for m in WIDEN_SIZES]
+    calls += [
+        ("pop_front_ranges", lambda d, r, b: d.pop_front_ranges(r)),
+        ("push_front_drop", lambda d, r, b: d.push_front_drop(r, b)),
+        ("push_front_drop_min_ctx_60", lambda d, r, b: d.push_front_drop(r, b, min_ctx=60)),
+    ]
+    for name, fn in calls:
+        got, out[name + "_s"] = timed(lambda: fn(d, found, bases.to(dev)))
+        t0 = time.perf_counter()
+        want = fn(dc, cpu, bases)
+        out[name + "_cpu_s"] = time.perf_counter() - t0
+        require_same(name, tuple(got), tuple(want))
+        out[name + "_valid"] = int(got.valid.sum())
+    n = ss.n_entries
+    pos = torch.randint(0, n + 1, (LT_QUERIES,), generator=g)
+    c = torch.randint(0, 101, (LT_QUERIES,), generator=g).to(torch.int32)
+    lt, lt_cpu = d.shared_lt, dc.shared_lt
+    for name in ("next_backward_lt", "next_forward_lt"):
+        got, out[f"ltsearch_{name}_s"] = timed(lambda: getattr(lt, name)(pos.to(dev), c.to(dev)))
+        t0 = time.perf_counter()
+        want = getattr(lt_cpu, name)(pos, c)
+        out[f"ltsearch_{name}_cpu_s"] = time.perf_counter() - t0
+        require_same(f"LtSearch {name}", got, want)
+    out["ltsearch_queries"] = LT_QUERIES
+    return out
+
+
+def sdk_checks(dev, ss, rm, codes, genome):
+    """BioGraph on a .bgt of the store and the readmap, opened on the card
+    and on the CPU: find, SeqsetEntry.pop_front and truncate, and the read
+    iteration methods on a sample of reads, with identical answers."""
+    from biograph_tpu_torch.api import BioGraph
+
+    from biograph_tpu_torch.core import dna
+
+    rng = np.random.default_rng(SEED + 23)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(tmp + "/sample.bgt")
+        ss.save(tmp + "/sample.bgt/seqset")
+        rm.save(tmp + "/sample.bgt/readmap")
+        bg, out["open_s"] = timed(lambda: BioGraph(tmp + "/sample.bgt", device=dev))
+        bg_cpu = BioGraph(tmp + "/sample.bgt", device="cpu")
+    if not bg.num_reads == bg_cpu.num_reads == codes.shape[0]:
+        raise AssertionError(f"BioGraph: {bg.num_reads} reads on the card, {bg_cpu.num_reads} on the CPU")
+    sample = rng.choice(codes.shape[0], 16, replace=False)
+    overlap_at = dict(zip(sample.tolist(), rng.integers(0, genome.shape[0] - 150, 16).tolist()))
+
+    def entry_tuple(e):
+        return (e.begin, e.end, e.size)
+
+    def walk(g):
+        res = []
+        for i in sample:
+            e = g.find(dna.codes_to_seq(codes[i]))
+            res.append(entry_tuple(e))
+            res += [entry_tuple(e.pop_front()), entry_tuple(e.truncate(30)), entry_tuple(e.truncate(1))]
+            res.append(g.readmap.get_prefix_reads(e))
+            res.append(g.readmap.get_reads_containing(codes[i][30:60]))
+            p = overlap_at[int(i)]
+            res.append(g.readmap.find_overlap_reads(genome[p : p + 150], min_overlap=60))
+        return res
+
+    on_card, out["queries_s"] = timed(lambda: walk(bg))
+    on_cpu = walk(bg_cpu)
+    if on_card != on_cpu:
+        diff = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu)) if a != b)
+        raise AssertionError(f"BioGraph: the card and the CPU differ at answer {diff}: {on_card[diff]} vs {on_cpu[diff]}")
+    if not all(r[0] < r[1] for r in on_card[::7]):
+        raise AssertionError("BioGraph: a sampled read was not found")
+    out.update(reads_sampled=len(sample), answers=len(on_card),
+               reads_containing=sum(len(x) for x in on_card[5::7]), overlap_reads=sum(len(x) for x in on_card[6::7]))
+    return out
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -1536,10 +1738,23 @@ def main():
     # discovery with the readmap the main path built and loaded, held to the
     # JAX package's CPU leg (its reference names the contig as bench.py does)
     scored_reference = reference_from_numpy(genome, np.zeros(GENOME, bool), [("chr", 0, GENOME)])
-    _, scored_asms, scored = discover_scored_phase(ss, rm, scored_reference, read_records_file(), stats["build_s"] + stats["readmap_s"], READS)
+    want = read_records_file()
+    _, scored_asms, scored = discover_scored_phase(ss, rm, scored_reference, want, stats["build_s"] + stats["readmap_s"], READS)
     say(phase="discover_scored", card=card, **scored)
     (checked, cov_slab, chain_fixed_launches), seconds = timed(lambda: scored_checks(dev, ss, rm, rm_cpu, reference, scored_asms))
     say(phase="scored_checks", ok=True, max_abs_err=0, seconds=seconds, **checked)
+
+    # the scored call by the dense front end and without the trunc tables,
+    # each held to the same records; the widen family and the SDK on the
+    # full store, each against its CPU copy
+    dense = discover_dense_phase(ss, rm, scored_reference, want)
+    say(phase="discover_dense", card=card, **dense)
+    no_trunc = discover_no_trunc_phase(ss, rm, scored_reference, want, scored["warm"])
+    say(phase="discover_no_trunc", card=card, **no_trunc)
+    widened, seconds = timed(lambda: widen_checks(ss, rm_cpu.seqset, found))
+    say(phase="widen_checks", ok=True, card=card, seconds=seconds, **widened)
+    sdk, seconds = timed(lambda: sdk_checks(dev, ss, rm, codes, genome))
+    say(phase="sdk_checks", ok=True, seconds=seconds, **sdk)
 
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
@@ -1550,6 +1765,8 @@ def main():
     for r in rows:
         r["launches_discover"] = found_by["warm"]["launches"][r["name"]]
         r["launches_discover_scored"] = scored["warm"]["launches"][r["name"]]
+        r["launches_discover_dense"] = dense["warm"]["launches"][r["name"]]
+        r["launches_discover_no_trunc"] = no_trunc["warm"]["launches"][r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:
@@ -1570,6 +1787,11 @@ def main():
         PROFILE["discover_scored"].update(
             cold_s=scored["cold"]["seconds"], warm_s=scored["warm"]["seconds"], stage_s_warm=scored["warm"]["stage_s"],
         )
+        for stage, constants, calls in (("discover_dense", {"NO_PRESCREEN": True}, dense),
+                                        ("discover_no_trunc", {"BUDGET_BYTES": TINY_BUDGET_BYTES}, no_trunc)):
+            with discovery_constants(**constants):
+                run_discover(ss, scored_reference, stage=stage, readmap=rm)
+            PROFILE[stage].update(cold_s=calls["cold"]["seconds"], warm_s=calls["warm"]["seconds"], stage_s_warm=calls["warm"]["stage_s"])
         # the score stage's coverage batch alone, on the warm call's
         # assemblies: host- or device-bound
         opt = disc.DiscoverOptions(**DISCOVER_OPT)

@@ -137,6 +137,8 @@ def test_records_identical_without_a_readmap(worlds, name):
     # the plan budgets what the port's engine holds, not the JAX layout
     plan, ts = tstats["memory_plan"], w["ts"]
     held = [ts.d.fixed, ts.d.rank_blocks, ts.d.entry_sizes, ts.d.shared, ts.d.pop_sel, ts.prev_words, ts.prev_cum]
+    lt = ts.d.shared_lt  # counted whether or not a query has built it
+    held += [lt.values, lt.block_min, lt.levels]
     assert plan["core_bytes"] == sum(t.numel() * t.element_size() for t in held) + 4**12
     assert plan["trunc_bytes"] == 16 * ts.n_entries and plan["ref2_bytes"] == 2 * G
     assert plan["use_trunc_tables"] and plan["span_table_cap"] == tdisc.SPAN_TABLE_CAP
@@ -185,17 +187,7 @@ def test_options_field_for_field():
         jdisc.MAXA, jdisc.CHECK_EVERY, jdisc.WAVE_LANES, jdisc.WAVE_COMPACT_MIN, jdisc.SPAN_TABLE_CAP)
 
 
-def test_what_waits_raises_and_names_its_module(worlds, monkeypatch):
-    w = worlds("snps")
-    with pytest.raises(NotImplementedError, match="restart masks"):
-        tdisc.discover_variants(w["ts"], w["tref"], opt=tdisc.DiscoverOptions(min_anchor_ctx=11))
-    monkeypatch.setattr(tdisc, "HOST_BUDGET_BYTES", 1 << 16)
-    stats = {}
-    with pytest.raises(NotImplementedError, match="ltsearch"):
-        tdisc.discover_variants(w["ts"], w["tref"], stats=stats)
-    assert not stats["memory_plan"]["use_trunc_tables"] and stats["memory_plan"]["span_table_cap"] == 0
-    with pytest.raises(NotImplementedError, match="ltsearch"):
-        tdisc._wavefront_body(w["ts"].d, None, None, None, 0, {}, 1, 8, 5, 1, 25, 18)
+def test_span_kmers_rejects_k_over_31():
     with pytest.raises(ValueError, match="31 bases"):
         tdisc._span_kmers_dev(torch.zeros(100, dtype=torch.uint8), 0, 100, 64, 32)
 

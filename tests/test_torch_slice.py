@@ -225,8 +225,8 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
     assert set(launches) == set(chip_smoke.WRAPPERS) and not any(launches.values())  # CPU tensors: the plain versions
     assert set(dstats["stage_s"]) == {"probe_filter", "probe_exact", "anchors", "wavefront", "extract"}
     rm_cpu = rm.to("cpu")
-    found = chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, records, snp, donor, starts, 100)
-    assert found["planted"] == 16 and found["share"] == 1.0 and found["well_covered"] > 0 and found["region_records"] > 0
+    checked = chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, records, snp, donor, starts, 100)
+    assert checked["planted"] == 16 and checked["share"] == 1.0 and checked["well_covered"] > 0 and checked["region_records"] > 0
     bad = [dict(records[0], ref="ACGT"[("ACGT".index(records[0]["ref"][0]) + 1) % 4] + records[0]["ref"][1:])] + records[1:]
     with pytest.raises(AssertionError, match="not the genome's"):
         chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, bad, snp, donor, starts, 100)
@@ -277,6 +277,21 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
     assert paired["strict_gate_pair_gated"] >= 1 and paired["proper_pairs"] > 0
     with pytest.raises(AssertionError, match="no rank or no chain_window"):  # CPU tensors launch nothing
         chip_smoke.mixed_lengths_check(dev)
+    # the dense front end and the wavefront without trunc tables give the same records
+    dense = chip_smoke.discover_dense_phase(ss, rm, scored_reference, want)
+    assert dense["records"] == len(want) and "probe_dispatch" in dense["warm"]["stage_s"]
+    assert dense["holds"]["rank_calls_by_lanes"] == {8192: 25} and sum(dense["holds"]["push4_calls_by_lanes"].values()) == 1
+    with pytest.raises(AssertionError, match="the JAX CPU leg"):
+        chip_smoke.discover_dense_phase(ss, rm, scored_reference, want[1:])
+    assert not chip_smoke.disc.NO_PRESCREEN  # restored after a failure too
+    no_trunc = chip_smoke.discover_no_trunc_phase(ss, rm, scored_reference, want, scored["warm"])
+    assert not no_trunc["memory_plan"]["use_trunc_tables"] and chip_smoke.disc.BUDGET_BYTES is None
+    # the widen family and the SDK, against a CPU copy (here: another)
+    monkeypatch.setattr(chip_smoke, "LT_QUERIES", 5000)
+    widened = chip_smoke.widen_checks(ss, rm_cpu.seqset, found)
+    assert widened["ranges"] == 1200 and widened["truncate_ranges_to_25_valid"] == 1200
+    sdk = chip_smoke.sdk_checks(dev, ss, rm, codes, genome)
+    assert sdk["answers"] == 16 * 7 and sdk["reads_containing"] > 0 and sdk["overlap_reads"] > 0
 
 
 def test_reads_to_records_each_package_on_its_own_store():
