@@ -1,4 +1,5 @@
-"""Carry a seqset or readmap between the two packages as numpy arrays.
+"""Carry a seqset, a readmap, a reference or a classifier between the two
+packages as numpy arrays.
 
 The JAX package's ``Seqset`` / ``Readmap`` fields, taken as numpy arrays by
 the caller, become the port's tensors on a chosen device, and back.  The
@@ -86,3 +87,16 @@ def reference_from_numpy(flat, is_n, contigs):
         is_n=np.ascontiguousarray(is_n, dtype=bool),
         contigs=[Contig(name=str(n), start=int(s), length=int(l)) for n, s, l in contigs],
     )
+
+
+def classifier_from_arrays(arrays: dict, device="cuda"):
+    """A port ``Classifier`` (one output) or ``GtClassifier`` (one output a
+    genotype class) from a JAX model's parameters as numpy arrays:
+    ``w0..w2`` as ``[in, out]``, ``b0..b2``, ``mean`` and ``std``.  With
+    those weights both packages compute the same function."""
+    from biograph_tpu_torch.classifier.model import Classifier, GtClassifier
+
+    params = {k: np.asarray(v, np.float32) for k, v in arrays.items() if k[0] in "wb"}
+    last = max(int(k[1:]) for k in params if k[0] == "w")
+    cls = Classifier if params[f"w{last}"].shape[1] == 1 else GtClassifier
+    return cls(params, arrays["mean"], arrays["std"], device)

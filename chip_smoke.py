@@ -44,6 +44,21 @@ LtSearch on 2^20 random queries, on the card and on a CPU copy of the store
 with identical answers; a .bgt of the store and the readmap is opened with
 BioGraph on the card and on the CPU, and find, SeqsetEntry.pop_front and
 truncate and read iteration on a sample of reads give identical answers.
+The coverage stage runs twice.  On the scaled leg (coverage's hash route)
+``run_coverage`` annotates the VCF of the 2299 records, with pair coverage
+and phasing, on a BioGraph of the store, cold and warm, and the annotated
+VCF and every feature column must equal the JAX CPU leg's
+(``tests/data/torch_scaled_leg_coverage.tsv``); the JAX-trained classifier
+(``tests/data/torch_scaled_leg_qual_model.npz``) is applied on the card
+within 1e-5 of the file's probabilities; ``run_coverage_parallel`` with two
+spawned workers gives run_coverage's output.  Then a trimmed, paired,
+diploid library (120 000 pairs over the same genome: 3000 het and 1000 hom
+SNPs, 200 het indels, half the reads trimmed by 1-30 bases) is built with
+its mate pairs, discovered with the pair gate and annotated with pairs,
+phasing and the joint graph on coverage's general route, which must launch
+rank and chain_window; a region of 200 records is held to a CPU copy, the
+genotypes to the library's truth, and a classifier trained on the card to
+the same training on the CPU.
 Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
@@ -69,6 +84,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -80,9 +96,11 @@ from biograph_tpu_torch.index import probes
 from biograph_tpu_torch.index import readmap as readmap_mod
 from biograph_tpu_torch.index.readmap import Readmap
 from biograph_tpu_torch.io.vcf import read_vcf
+from biograph_tpu_torch.classifier import model as clf_model
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops import _build, rank4 as rank4_ops, rank_cum as rank_cum_ops
 from biograph_tpu_torch.ops.ltsearch import LtSearch
+from biograph_tpu_torch.variants import coverage_tool as cov
 from biograph_tpu_torch.variants import discover as disc
 
 SEED = 12345
@@ -100,6 +118,15 @@ PEAK_OPS_PER_S = 67e12
 # rank layout: two ranks (word index, mask, popcount, the adds) plus the
 # window base, the gate, the size compare and the kick.
 CHAIN_OPS_PER_STEP = 48
+# the trimmed, paired, diploid leg: reads over a het SNP for its genotype to
+# count, and the least shares of well-read het SNPs called het and of hom
+# SNPs called 1/1.  The same generator and path on the CPU at 12 000 and
+# 40 000 bases (tests/test_torch_slice.py) gave 0.79 and 0.82 het (the rest
+# not discovered at 5.5x a haplotype) and 1.0 hom; its planted variants
+# annotated directly (tests/test_torch_coverage_tool.py) 0.97 and 1.0.
+MIN_HET_READS = 8
+HET_FLOOR = 0.7
+HOM_FLOOR = 0.9
 
 WRAPPERS = {
     "rank4": rank4_ops.rank4,
@@ -150,9 +177,9 @@ def timed(fn, stage=None):
 def _profiled(fn, stage):
     from torch.profiler import ProfilerActivity, profile
 
-    # discovery is tens of thousands of launches: its trace keeps the device
-    # side only
-    activities = [ProfilerActivity.CUDA] if stage.startswith("discover") else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # discovery and coverage are tens of thousands of launches: their
+    # traces keep the device side only
+    activities = [ProfilerActivity.CUDA] if stage.startswith(("discover", "coverage")) else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with profile(activities=activities) as prof:
         out = fn()
@@ -259,6 +286,125 @@ def simulate(genome_len: int, n_reads: int, n_snps: int, read_len: int):
     half = n_reads // 2
     codes[:half] = (3 - codes[:half])[:, ::-1]
     return genome, codes.astype(np.uint8), np.full(n_reads, read_len, np.int32), snp, donor, starts
+
+
+def trimmed_paired_library(genome, n_pairs: int, n_het: int, n_hom: int, n_indel: int, seed: int = SEED + 31):
+    """A paired, trimmed, diploid library over ``genome``.
+
+    The donor carries n_het het SNPs (each on one haplotype, chosen at
+    random), n_hom hom SNPs and n_indel het indels of 1-8 bases, half of
+    them insertions, on a grid of 20 bases so no two overlap.  Each pair is
+    drawn from one haplotype: a fragment of normal length (mean 400, sd 40),
+    read 1 its first READ_LEN bases, read 2 the reverse complement of its
+    last; half the reads are trimmed at the 3' end by 1-30 bases.  Returns
+    (codes [2 n_pairs, READ_LEN], lengths, mate_of, truth), truth a dict of
+    the planted variants: ``het`` and ``hom`` as (0-based position, ref
+    code, alt code) arrays, ``indel`` as (0-based position, ref, alt)
+    strings in VCF form (the base before the event first), and
+    ``het_reads`` / ``hom_reads`` the reads over each SNP."""
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    slots = rng.choice(np.arange(200, G - 200, 20), n_het + n_hom + n_indel, replace=False)
+    het, hom, ind = np.sort(slots[:n_het]), np.sort(slots[n_het : n_het + n_hom]), np.sort(slots[n_het + n_hom :])
+    het_alt = ((genome[het] + 1 + rng.integers(0, 3, n_het)) % 4).astype(np.uint8)
+    hom_alt = ((genome[hom] + 1 + rng.integers(0, 3, n_hom)) % 4).astype(np.uint8)
+    het_hap = rng.integers(0, 2, n_het)
+    ind_hap = rng.integers(0, 2, n_indel)
+    ind_len = rng.integers(1, 9, n_indel)
+    is_ins = np.arange(n_indel) % 2 == 0
+    ins_seq = [rng.integers(0, 4, n, dtype=np.uint8) for n in ind_len]
+    haps = []
+    for h in range(2):
+        snp_pos = np.concatenate([het[het_hap == h], hom])
+        snp_alt = np.concatenate([het_alt[het_hap == h], hom_alt])
+        hap = genome.copy()
+        hap[snp_pos] = snp_alt
+        pieces, prev = [], 0
+        for k in np.nonzero(ind_hap == h)[0]:
+            p = int(ind[k])
+            pieces.append(hap[prev : p + 1])
+            if is_ins[k]:
+                pieces.append(ins_seq[k])
+                prev = p + 1
+            else:
+                prev = p + 1 + int(ind_len[k])
+        pieces.append(hap[prev:])
+        haps.append(np.concatenate(pieces))
+    hap_of = rng.integers(0, 2, n_pairs)
+    frag = np.clip(np.round(rng.normal(400, 40, n_pairs)), READ_LEN, 700).astype(np.int64)
+    codes = np.zeros((2 * n_pairs, READ_LEN), np.uint8)
+    start = np.zeros(n_pairs, np.int64)
+    for h in range(2):
+        sel = np.nonzero(hap_of == h)[0]
+        start[sel] = rng.integers(0, len(haps[h]) - frag[sel])
+        codes[2 * sel] = haps[h][start[sel, None] + np.arange(READ_LEN)]
+        codes[2 * sel + 1] = (3 - haps[h][(start[sel] + frag[sel] - READ_LEN)[:, None] + np.arange(READ_LEN)])[:, ::-1]
+    lengths = np.full(2 * n_pairs, READ_LEN, np.int32)
+    trimmed = rng.random(2 * n_pairs) < 0.5
+    lengths[trimmed] -= rng.integers(1, 31, int(trimmed.sum())).astype(np.int32)
+    codes = np.where(np.arange(READ_LEN)[None, :] < lengths[:, None], codes, 0).astype(np.uint8)
+    mate_of = np.arange(2 * n_pairs) ^ 1
+    # reads over each SNP, both haplotypes: a read's span on its haplotype
+    # (read 2 loses its trimmed bases at the fragment's inner end), and a
+    # SNP's place on a haplotype, shifted by the indels before it there
+    lo = np.stack([start, start + frag - lengths[1::2]], axis=1).reshape(-1)
+    hi = np.stack([start + lengths[0::2], start + frag], axis=1).reshape(-1)
+    hap_of_read = np.repeat(hap_of, 2)
+
+    def reads_over(pos):
+        n = np.zeros(len(pos), np.int64)
+        for h in range(2):
+            k = np.nonzero(ind_hap == h)[0]
+            shift = np.where(is_ins[k], ind_len[k], -ind_len[k])
+            at = pos + np.concatenate([[0], np.cumsum(shift)])[np.searchsorted(ind[k], pos)]
+            mine = hap_of_read == h
+            n += np.searchsorted(np.sort(lo[mine]), at, side="right") - np.searchsorted(np.sort(hi[mine]), at, side="right")
+        return n
+
+    code = "ACGT"
+    indels = []
+    for k in range(n_indel):
+        p = int(ind[k])
+        if is_ins[k]:
+            indels.append((p, code[genome[p]], code[genome[p]] + "".join(code[c] for c in ins_seq[k])))
+        else:
+            indels.append((p, "".join(code[c] for c in genome[p : p + 1 + int(ind_len[k])]), code[genome[p]]))
+    truth = {
+        "het": (het, genome[het], het_alt), "hom": (hom, genome[hom], hom_alt), "indel": indels,
+        "het_reads": reads_over(het), "hom_reads": reads_over(hom),
+    }
+    return codes, lengths, mate_of, truth
+
+
+def truth_records(truth, chrom):
+    """The planted variants of ``trimmed_paired_library`` as (chrom, pos,
+    ref, alt) tuples in VCF order."""
+    out = [(chrom, int(p) + 1, "ACGT"[r], "ACGT"[a]) for kind in ("het", "hom") for p, r, a in zip(*truth[kind])]
+    out += [(chrom, p + 1, r, a) for p, r, a in truth["indel"]]
+    return sorted(out, key=lambda t: t[1])
+
+
+def genotype_shares(records, truth, chrom):
+    """How the annotated records of a ``trimmed_paired_library`` stand
+    against its truth: the share of planted het SNPs with at least
+    MIN_HET_READS reads over them that come out het (0/1, or phased 0|1 or
+    1|0), the share of planted hom SNPs that come out 1/1, the phase blocks
+    (distinct PS values) and the share of records with PC > 0."""
+    gt_of = {(r.chrom, r.pos, r.ref, r.alt): str(r.fmt.get("GT")) for r in records}
+
+    def share(kind, want, keep):
+        p, ref, alt = truth[kind]
+        hits = [gt_of.get((chrom, int(q) + 1, "ACGT"[a], "ACGT"[b])) in want for q, a, b in zip(p[keep], ref[keep], alt[keep])]
+        return float(np.mean(hits)) if hits else 0.0
+
+    well_read = truth["het_reads"] >= MIN_HET_READS
+    return {
+        "het_snps_well_read": int(well_read.sum()),
+        "het_right": share("het", ("0/1", "0|1", "1|0"), well_read),
+        "hom_right": share("hom", ("1/1",), np.ones(len(truth["hom"][0]), bool)),
+        "phase_blocks": len({r.fmt["PS"] for r in records if "PS" in r.fmt}),
+        "pc_positive": float(np.mean([int(r.info["PC"]) > 0 for r in records])) if records else 0.0,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1020,10 +1166,11 @@ MIN_READS_OVER_SNP = 5
 MIN_SNP_SHARE = 0.99
 
 
-def run_discover(ss, reference, stage=None, **kw):
-    """One discover_variants call with every kernel's count set to 0 just
-    before it and read just after: (records, stats, seconds, launches)."""
-    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+def run_discover(ss, reference, stage=None, opt=None, **kw):
+    """One discover_variants call (with DISCOVER_OPT unless ``opt`` is
+    given) with every kernel's count set to 0 just before it and read just
+    after: (records, stats, seconds, launches)."""
+    opt = opt or disc.DiscoverOptions(**DISCOVER_OPT)
     for fn in WRAPPERS.values():
         fn.launches = 0
     stats = {}
@@ -1678,6 +1825,306 @@ def sdk_checks(dev, ss, rm, codes, genome):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the coverage stage and the classifier: the scaled leg, and a trimmed,
+# paired, diploid library
+# ---------------------------------------------------------------------------
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+COVERAGE_FILE = os.path.join(DATA, "torch_scaled_leg_coverage.tsv")
+MODEL_FILE = os.path.join(DATA, "torch_scaled_leg_qual_model.npz")
+COVERAGE_KERNELS = ("rank", "chain_window")  # coverage's general route
+PROB_TOL = 1e-5  # the classifier's probabilities against the JAX CPU leg's file (float32 here, float64 there)
+TRAIN_TOL = 1e-4  # training on the card against the same training on a CPU copy
+TRIMMED = dict(n_pairs=120_000, n_het=3000, n_hom=1000, n_indel=200)
+REGION_RECORDS = 200  # records of leg 2 held to a CPU copy
+PARALLEL_GAP = 1000  # leg 1's region chunks: unpaired reads of 100 bases, so no evidence crosses 1000 bases
+
+
+@contextlib.contextmanager
+def step_clock():
+    """The coverage stage's steps (annotate_coverage,
+    annotate_pair_coverage, phase_records, evaluate_vargraph) each timed,
+    the device drained before and after, while the block runs: yields
+    {step: seconds}."""
+    from biograph_tpu_torch.variants import phase, vargraph
+
+    seconds = {}
+    targets = [(cov, "annotate_coverage"), (cov, "annotate_pair_coverage"), (phase, "phase_records"), (vargraph, "evaluate_vargraph")]
+    saved = [(m, name, getattr(m, name)) for m, name in targets]
+
+    def clocked(name, fn):
+        def run(*args, **kw):
+            out, sec = timed(lambda: fn(*args, **kw))
+            seconds[name] = seconds.get(name, 0.0) + sec
+            return out
+
+        return run
+
+    try:
+        for m, name, fn in saved:
+            setattr(m, name, clocked(name, fn))
+        yield seconds
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+@contextlib.contextmanager
+def held_kernels():
+    """rank and chain_window, as coverage's general route calls them
+    (``Seqset.d`` and ``probes``), each held against its plain version on
+    the very tensors it is handed, at every call, while the block runs:
+    yields {kernel: {lanes: calls}}."""
+    held = {"rank": {}, "chain_window": {}}
+    real_rank, real_chain = rank4_ops.rank, probes.chain_window
+
+    def count(kernel, lanes):
+        held[kernel][lanes] = held[kernel].get(lanes, 0) + 1
+
+    def rank(blocks, b, pos, pos_end=None):
+        got = real_rank(blocks, b, pos, pos_end)
+        want = tuple(rank4_ops.rank_blocks_plain(blocks, b, p) for p in ((pos,) if pos_end is None else (pos, pos_end)))
+        require_equal(f"rank in coverage, {b.numel()} lanes", got if pos_end is not None else (got,), want)
+        count("rank", b.numel())
+        return got
+
+    def chain_window(*args):
+        got = real_chain(*args)
+        require_equal(f"chain_window in coverage, {args[3].shape[0]} lanes", got, rank4_ops.chain_window_plain(*args))
+        count("chain_window", args[3].shape[0])
+        return got
+
+    rank.launches = 0  # the wrapped rank counts its launches here while the block runs
+    try:
+        rank4_ops.rank, probes.chain_window = rank, chain_window
+        yield held
+    finally:
+        rank4_ops.rank, probes.chain_window = real_rank, real_chain
+
+
+def run_coverage_counted(bg, reference, vcf_in, vcf_out, feats_out, stage=None, **kw):
+    """One run_coverage call with every kernel's count set to 0 just before
+    it and read just after, its steps timed: (annotated records, features,
+    seconds, steps' seconds, launches)."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    with step_clock() as steps:
+        _, seconds = timed(lambda: cov.run_coverage(vcf_in, vcf_out, bg, reference, features_out=feats_out, **kw), stage)
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    return read_vcf(vcf_out), dict(np.load(feats_out)), seconds, steps, launches
+
+
+COVERAGE_VCF_COLUMNS = ["chrom", "pos", "ref", "alt", "GT", "GQ", "AD", "PL", "DP", "PC", "PS"]
+
+
+def coverage_rows(records, feats, prob=None):
+    """The coverage file's (column names, rows of text): a row a record, the
+    annotated VCF's columns, every feature column in name order, and prob
+    when given; floats as the shortest text that reads back to the same
+    value."""
+    names = sorted(feats)
+    rows = []
+    for i, r in enumerate(records):
+        row = [r.chrom, str(r.pos), r.ref, r.alt] + [str(r.fmt.get(k, ".")) for k in ("GT", "GQ", "AD", "PL", "DP")]
+        row += [str(r.info["PC"]), str(r.fmt.get("PS", "."))]
+        row += [repr(float(feats[k][i])) if feats[k].dtype.kind == "f" else str(int(feats[k][i])) for k in names]
+        if prob is not None:
+            row.append(repr(float(prob[i])))
+        rows.append(row)
+    return COVERAGE_VCF_COLUMNS + names + (["prob"] if prob is not None else []), rows
+
+
+def read_coverage_file():
+    """The JAX CPU leg's coverage of the scaled workload (the file's header
+    names the command that made it): (column names, rows of text)."""
+    with open(COVERAGE_FILE) as f:
+        lines = [ln.rstrip("\n").split("\t") for ln in f if not ln.startswith("##")]
+    lines[0][0] = lines[0][0].lstrip("# ")
+    return lines[0], lines[1:]
+
+
+def save_sample(path, ss, rm):
+    """A .bgt of the store and the readmap at path."""
+    os.makedirs(path)
+    ss.save(path + "/seqset")
+    rm.save(path + "/readmap")
+    return path
+
+
+def fasta_dir(path, genome, name):
+    """A reference dir holding the genome as source.fasta, one contig."""
+    from biograph_tpu_torch.core import dna
+
+    os.makedirs(path)
+    with open(path + "/source.fasta", "w") as f:
+        f.write(f">{name}\n{dna.codes_to_seq(genome)}\n")
+    return path
+
+
+def coverage_scored_phase(dev, ss, rm, reference, genome, want_records, tmp):
+    """Leg 1, the scaled leg: run_coverage (pairs, phasing) of the VCF of
+    the JAX CPU leg's 2299 records on a BioGraph of the store and readmap on
+    the card, cold and warm, each equal to the committed JAX CPU leg's
+    coverage file, every column exact; the committed JAX-trained model
+    applied (apply_to_vcf), its probabilities within PROB_TOL of the file's
+    and FILTER the same; run_coverage_parallel with 2 workers equal to
+    run_coverage.  Returns (what to print, the warm call's launches, a
+    callable that runs the warm call again)."""
+    from biograph_tpu_torch.api import BioGraph
+
+    names, want = read_coverage_file()
+    vcf_in = tmp + "/scored.vcf"
+    records = [dict(zip(("chrom", "pos", "ref", "alt", "support", "ref_support"), r)) for r in want_records]
+    disc.write_discovery_vcf(vcf_in, reference, records, opt=disc.DiscoverOptions(**DISCOVER_OPT, simple_genotype_filter=False))
+    bgt = save_sample(tmp + "/scaled.bgt", ss, rm)
+    bg, open_s = timed(lambda: BioGraph(bgt, device=dev))
+    out = {"records": len(records), "open_s": open_s}
+    for run in ("cold", "warm"):
+        annotated, feats, seconds, steps, launches = run_coverage_counted(
+            bg, reference, vcf_in, tmp + f"/cov_{run}.vcf", tmp + f"/cov_{run}.npz", pair_cov=True, phase=True)
+        got_names, got = coverage_rows(annotated, feats)
+        if got_names + ["prob"] != names or got != [w[:-1] for w in want]:
+            bad = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w[:-1]), min(len(got), len(want)))
+            raise AssertionError(f"coverage_scored {run}: {len(got)} rows, the JAX CPU leg {len(want)}; first difference at row {bad}: "
+                                 f"{got[bad] if bad < len(got) else None} vs {want[bad][:-1] if bad < len(want) else None}")
+        out[run] = {"seconds": seconds, "steps_s": steps, "launches": launches}
+    # the JAX-trained model on the card, its float32 matmuls at full precision
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("coverage_scored: TF32 is on; the classifier's matmuls must run in full float32")
+    out["float32_matmul_precision"] = torch.get_float32_matmul_precision()
+    want_prob = np.array([float(w[-1]) for w in want])
+    for run in ("cold", "warm"):
+        clf, load_s = timed(lambda: clf_model.Classifier.load(MODEL_FILE, device=dev))
+        prob, apply_s = timed(lambda: clf_model.apply_to_vcf(clf, tmp + "/cov_warm.vcf", tmp + f"/qual_{run}.vcf", feats))
+        out[run]["classifier_s"] = load_s + apply_s
+    err = float(np.abs(prob.astype(np.float64) - want_prob).max())
+    filters = [r.filter for r in read_vcf(tmp + "/qual_warm.vcf")]
+    if err > PROB_TOL or filters != ["PASS" if p >= 0.5 else "lowq" for p in want_prob]:
+        raise AssertionError(f"coverage_scored: the classifier's probabilities differ from the JAX CPU leg's by {err} (limit {PROB_TOL}), or FILTER does")
+    out.update(classifier_max_abs_err=err, passing=filters.count("PASS"))
+    # region-parallel: 2 workers, each opening the .bgt on the card
+    ref_dir = fasta_dir(tmp + "/scaled_ref", genome, reference.contigs[0].name)
+    _, out["parallel_s"] = timed(lambda: cov.run_coverage_parallel(
+        vcf_in, tmp + "/par.vcf", bgt, ref_dir, n_workers=2, features_out=tmp + "/par.npz",
+        pair_cov=True, phase=True, safe_gap=PARALLEL_GAP, device=dev))
+    with open(tmp + "/par.vcf") as f, open(tmp + "/cov_warm.vcf") as g:
+        same = f.read() == g.read()
+    par = dict(np.load(tmp + "/par.npz"))
+    if not same or sorted(par) != sorted(feats) or not all(np.array_equal(par[k], feats[k]) for k in feats):
+        raise AssertionError("coverage_scored: run_coverage_parallel differs from run_coverage")
+    out["parallel_chunks"] = len(cov._region_chunks(read_vcf(vcf_in), 2, safe_gap=PARALLEL_GAP))
+
+    def again():
+        return cov.run_coverage(vcf_in, tmp + "/again.vcf", bg, reference, features_out=tmp + "/again.npz", pair_cov=True, phase=True)
+
+    return out, out["warm"]["launches"], again
+
+
+def truth_labels(records, truth, chrom, slack=10):
+    """True where a record is a planted variant: a SNP at its place, an
+    indel of the same length change within ``slack`` bases (an indel in a
+    repeat has several places)."""
+    snps = {(chrom, int(p) + 1, "ACGT"[r], "ACGT"[a]) for kind in ("het", "hom") for p, r, a in zip(*truth[kind])}
+    indels = [(p + 1, len(a) - len(r)) for p, r, a in truth["indel"]]
+    out = []
+    for r in records:
+        change = len(r.alt) - len(r.ref)
+        out.append((r.chrom, r.pos, r.ref, r.alt) in snps or (change != 0 and any(abs(r.pos - p) <= slack and change == c for p, c in indels)))
+    return np.array(out)
+
+
+def coverage_trimmed_phase(dev, genome, tmp, trimmed=TRIMMED, region_records=REGION_RECORDS, min_entries=1_000_000):
+    """Leg 2, a trimmed, paired, diploid library at full size
+    (``trimmed_paired_library``): the store and the readmap built with
+    mate_of on the card; discover_variants with the readmap and the pair
+    gate; run_coverage (pairs, phasing, the joint graph) of its VCF, which
+    must launch rank and chain_window (coverage's general route); over a
+    region of region_records records the annotated VCF and features equal to
+    the same call on a CPU copy of the store and readmap; genotypes against
+    the truth; train_classifier on the card against the truth labels, its
+    probabilities held to the same training on a CPU copy from the same
+    init.  Returns (what to print, the coverage call's launches, a callable
+    that runs the coverage call again)."""
+    codes, lengths, mate_of, truth = trimmed_paired_library(genome, **trimmed)
+    G = len(genome)
+    out = {"pairs": trimmed["n_pairs"], "reads": len(lengths), "read_lengths": [int(lengths.min()), int(lengths.max())],
+           "mean_read_length": float(lengths.mean()), "per_haplotype_coverage": float(lengths.sum()) / G / 2}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ss, out["build_s"] = timed(lambda: build_seqset(codes, lengths, device=dev))
+    rm, out["readmap_s"] = timed(lambda: build_readmap(ss, codes, lengths, mate_of=mate_of, device=dev))
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    out["n_entries"] = ss.n_entries
+    if ss.n_entries < min_entries:
+        raise AssertionError(f"leg 2: n_entries {ss.n_entries} is below the real-size floor of {min_entries}")
+    reference = reference_from_numpy(genome, np.zeros(G, bool), [("chr1", 0, G)])
+    opt = disc.DiscoverOptions()
+    records, stats, out["discover_s"], out["discover_launches"] = run_discover(ss, reference, opt=opt, readmap=rm)
+    out.update(records=len(records), pair_gated=stats.get("pair_gated", 0), discover_stage_s=stats["stage_s"])
+    vcf_in = tmp + "/trimmed.vcf"
+    disc.write_discovery_vcf(vcf_in, reference, records, opt=opt)
+    bg = SimpleNamespace(readmap=rm)  # what run_coverage reads of a BioGraph
+    annotated, feats, out["coverage_s"], out["steps_s"], launches = run_coverage_counted(
+        bg, reference, vcf_in, tmp + "/trimmed_cov.vcf", tmp + "/trimmed_cov.npz", pair_cov=True, phase=True, joint_graph=True)
+    out["vcf_records"], out["coverage_launches"] = len(annotated), launches
+    missing = [k for k in COVERAGE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"leg 2: run_coverage launched no {missing} kernel (the general route)")
+    # the kernels against their plain versions on the lanes of one batch
+    with held_kernels() as held:
+        _, out["kernel_holds_s"] = timed(lambda: cov.annotate_coverage(rm, reference, read_vcf(vcf_in)[: cov.BATCH]))
+    if not all(held.values()):
+        raise AssertionError(f"leg 2: a coverage batch replayed with the kernels held never reached one: {held}")
+    out["kernel_holds"] = {k: {str(lanes): n for lanes, n in v.items()} for k, v in held.items()}
+    # a region of region_records records on the card and on a CPU copy
+    from biograph_tpu_torch.io.vcf import VcfWriter
+
+    lo = max(len(annotated) // 2 - region_records // 2, 0)
+    part = read_vcf(vcf_in)[lo : lo + region_records]
+    with VcfWriter(tmp + "/region.vcf", contigs=[("chr1", G)]) as w:
+        for r in part:
+            w.write(r)
+    rm_cpu = rm.to("cpu")
+    region = {}
+    for name, sample in (("card", bg), ("cpu", SimpleNamespace(readmap=rm_cpu))):
+        region[name] = run_coverage_counted(sample, reference, tmp + "/region.vcf", tmp + f"/region_{name}.vcf", tmp + f"/region_{name}.npz",
+                                            pair_cov=True, phase=True, joint_graph=True)
+    if coverage_rows(*region["card"][:2]) != coverage_rows(*region["cpu"][:2]):
+        raise AssertionError(f"leg 2: the region of {len(part)} records differs between the card and the CPU copy")
+    out["region"] = {"records": len(part), "from_pos": part[0].pos, "to_pos": part[-1].pos,
+                     "card_s": region["card"][2], "cpu_s": region["cpu"][2], "cpu_steps_s": region["cpu"][3]}
+    del rm_cpu, region
+    # the truth
+    shares = genotype_shares(annotated, truth, "chr1")
+    out["truth"] = shares
+    if shares["het_right"] < HET_FLOOR or shares["hom_right"] < HOM_FLOOR:
+        raise AssertionError(f"leg 2: genotypes under the floors (het {HET_FLOOR}, hom {HOM_FLOOR}): {shares}")
+    # the classifier, trained on the card and on the CPU from one init
+    labels = truth_labels(annotated, truth, "chr1")
+    init = clf_model.init_params(SEED, [len(clf_model.FEATURES), 32, 32, 1])
+    trained = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        clf, train_s = timed(lambda: clf_model.train_classifier(feats, labels, device=where, init=init))
+        trained[name] = (clf.predict_proba(feats), train_s)
+    (p_card, out["train_s"]), (p_cpu, out["train_cpu_s"]) = trained["card"], trained["cpu"]
+    err = float(np.abs(p_card - p_cpu).max())
+    clear = np.abs(p_cpu - 0.5) > 1e-3
+    if err > TRAIN_TOL or ((p_card >= 0.5) != (p_cpu >= 0.5))[clear].any():
+        raise AssertionError(f"leg 2: the classifier trained on the card differs from the CPU copy's by {err} (limit {TRAIN_TOL}), or a decision does")
+    called = p_card >= 0.5
+    out["classifier"] = {
+        "steps": 2000, "records": len(labels), "true_records": int(labels.sum()), "max_abs_err_card_vs_cpu": err,
+        "precision": float((called & labels).sum() / max(called.sum(), 1)), "recall": float((called & labels).sum() / max(labels.sum(), 1)),
+    }
+
+    def again():
+        return cov.run_coverage(vcf_in, tmp + "/again2.vcf", bg, reference, features_out=tmp + "/again2.npz",
+                                pair_cov=True, phase=True, joint_graph=True)
+
+    return out, launches, again
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -1756,6 +2203,17 @@ def main():
     sdk, seconds = timed(lambda: sdk_checks(dev, ss, rm, codes, genome))
     say(phase="sdk_checks", ok=True, seconds=seconds, **sdk)
 
+    # the coverage stage and the classifier: on the scaled leg (the hash
+    # route), held to the JAX CPU leg's files; on a trimmed, paired, diploid
+    # library (the general route), held to a CPU copy and to its truth
+    tmp = tempfile.TemporaryDirectory()
+    cov_scored, cov_scored_launches, again_scored = coverage_scored_phase(dev, ss, rm, scored_reference, genome, want, tmp.name)
+    say(phase="coverage_scored", card=card, **cov_scored)
+    (cov_trimmed, cov_trimmed_launches, again_trimmed), seconds = timed(lambda: coverage_trimmed_phase(dev, genome, tmp.name))
+    say(phase="coverage_trimmed_paired", card=card, seconds=seconds, **cov_trimmed)
+    if profile_to is None:
+        del again_scored, again_trimmed
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
@@ -1767,6 +2225,8 @@ def main():
         r["launches_discover_scored"] = scored["warm"]["launches"][r["name"]]
         r["launches_discover_dense"] = dense["warm"]["launches"][r["name"]]
         r["launches_discover_no_trunc"] = no_trunc["warm"]["launches"][r["name"]]
+        r["launches_coverage_scored"] = cov_scored_launches[r["name"]]
+        r["launches_coverage_trimmed"] = cov_trimmed_launches[r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:
@@ -1792,6 +2252,12 @@ def main():
             with discovery_constants(**constants):
                 run_discover(ss, scored_reference, stage=stage, readmap=rm)
             PROFILE[stage].update(cold_s=calls["cold"]["seconds"], warm_s=calls["warm"]["seconds"], stage_s_warm=calls["warm"]["stage_s"])
+        # the coverage stage of both legs, the warm call again
+        timed(again_scored, "coverage_scored")
+        PROFILE["coverage_scored"].update(cold_s=cov_scored["cold"]["seconds"], warm_s=cov_scored["warm"]["seconds"])
+        _, warm_trimmed = timed(again_trimmed)
+        timed(again_trimmed, "coverage_trimmed")
+        PROFILE["coverage_trimmed"].update(cold_s=cov_trimmed["coverage_s"], warm_s=warm_trimmed)
         # the score stage's coverage batch alone, on the warm call's
         # assemblies: host- or device-bound
         opt = disc.DiscoverOptions(**DISCOVER_OPT)
@@ -1809,6 +2275,7 @@ def main():
             stages={k: {x: v[x] for x in ("cold_s", "warm_s", "device_busy_s", "device_idle_share", "launches")} for k, v in PROFILE.items()},
             beam_step=PROFILE["discover"]["beam_step"])
         PROFILE = None
+    tmp.cleanup()
     say(total_s=time.perf_counter() - t_start)
     print(card, flush=True)
     say(kernels=rows)

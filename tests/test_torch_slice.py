@@ -359,3 +359,72 @@ def test_reads_to_scored_records_and_vcf_each_package_on_its_own_store(tmp_path)
     tdisc.write_discovery_vcf(str(tmp_path / "t.vcf"), tref, got)
     jv, tv = (tmp_path / "j.vcf").read_text(), (tmp_path / "t.vcf").read_text()
     assert tv.replace("##source=biograph_tpu_torch\n", "##source=biograph_tpu\n") == jv and tv.count("\nchr1\t") == 3
+
+
+def test_chip_smoke_coverage_legs_at_toy_size_on_the_cpu(monkeypatch, tmp_path):
+    """The coverage legs of chip_smoke.py rehearsed on CPU tensors: leg 1 on
+    the scaled leg's generator at 8000 bases, held to files the JAX package
+    writes here as the slow test of tests/test_torch_coverage_tool.py writes
+    the committed ones (a file that differs in one genotype fails the leg);
+    leg 2 on the trimmed, paired, diploid generator at 12 000 bases."""
+    monkeypatch.syspath_prepend(REPO)
+    monkeypatch.syspath_prepend(os.path.join(REPO, "tests"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    import chip_smoke
+    import test_torch_coverage_tool as tct
+    from biograph_tpu.build.readmap_build import build_readmap as jax_build_readmap
+    from biograph_tpu.classifier.model import train_classifier as jax_train
+    from biograph_tpu.index.reference import Contig as JContig, Reference as JReference
+    from biograph_tpu.io.vcf import read_vcf as jax_read_vcf
+    from biograph_tpu.variants import coverage_tool as jcov
+    from biograph_tpu.variants.discover import DiscoverOptions, discover_variants as jax_discover, write_discovery_vcf
+
+    dev = torch.device("cpu")
+    G = 8000
+    genome, codes, lengths, snp, donor, starts = chip_smoke.simulate(G, 600, 16, 100)
+    js = jax_build_seqset(codes, lengths)
+    jr = jax_build_readmap(js, codes, lengths)
+    jref = JReference(flat=genome, is_n=np.zeros(G, bool), contigs=[JContig("chr", 0, G)])
+    records = jax_discover(js, jref, readmap=jr, opt=DiscoverOptions(min_alt_support=5))
+    want = [chip_smoke.key_of(r) for r in records]
+    write_discovery_vcf(str(tmp_path / "in.vcf"), jref, records, opt=DiscoverOptions(min_alt_support=5, simple_genotype_filter=False))
+
+    class JBG:
+        readmap = jr
+
+    jcov.run_coverage(str(tmp_path / "in.vcf"), str(tmp_path / "out.vcf"), JBG, jref, features_out=str(tmp_path / "f.npz"))
+    annotated, feats = jax_read_vcf(str(tmp_path / "out.vcf")), dict(np.load(tmp_path / "f.npz"))
+    clf = jax_train(feats, tct.scaled_leg_labels(annotated, genome, donor, snp), steps=50)
+    clf.save(str(tmp_path / "model.npz"))
+    names, rows = chip_smoke.coverage_rows(annotated, feats, clf.predict_proba(feats))
+    tct.write_coverage_file(str(tmp_path / "cov.tsv"), names, rows)
+    monkeypatch.setattr(chip_smoke, "COVERAGE_FILE", str(tmp_path / "cov.tsv"))
+    monkeypatch.setattr(chip_smoke, "MODEL_FILE", str(tmp_path / "model.npz"))
+    ss = build_seqset(codes, lengths, device="cpu")
+    rm = build_readmap(ss, codes, lengths, device="cpu")
+    reference = chip_smoke.reference_from_numpy(genome, np.zeros(G, bool), [("chr", 0, G)])
+    os.makedirs(tmp_path / "leg1")
+    out, launches, again = chip_smoke.coverage_scored_phase(dev, ss, rm, reference, genome, want, str(tmp_path / "leg1"))
+    assert out["records"] == len(want) > 5 and out["classifier_max_abs_err"] <= chip_smoke.PROB_TOL and out["parallel_chunks"] >= 2
+    assert set(out["warm"]["steps_s"]) == {"annotate_coverage", "annotate_pair_coverage", "phase_records"} and not any(launches.values())
+    assert len(again().gt) == len(want)
+    rows[0][4] = "0/1" if rows[0][4] != "0/1" else "1/1"
+    tct.write_coverage_file(str(tmp_path / "cov.tsv"), names, rows)
+    os.makedirs(tmp_path / "leg1b")
+    with pytest.raises(AssertionError, match="first difference at row 0"):
+        chip_smoke.coverage_scored_phase(dev, ss, rm, reference, genome, want, str(tmp_path / "leg1b"))
+    # leg 2: CPU tensors launch no kernel, so the general route's count is not asked for here
+    monkeypatch.setattr(chip_smoke, "COVERAGE_KERNELS", ())
+    genome2 = np.random.default_rng(chip_smoke.SEED + 41).integers(0, 4, 12_000).astype(np.uint8)
+    os.makedirs(tmp_path / "leg2")
+    small = dict(n_pairs=800, n_het=30, n_hom=8, n_indel=4)
+    out, launches, again = chip_smoke.coverage_trimmed_phase(dev, genome2, str(tmp_path / "leg2"), trimmed=small, region_records=10, min_entries=1000)
+    assert out["records"] == out["vcf_records"] > 20 and out["region"]["records"] == 10 and not any(launches.values())
+    assert out["truth"]["het_right"] >= chip_smoke.HET_FLOOR and out["truth"]["hom_right"] >= chip_smoke.HOM_FLOOR
+    assert out["truth"]["pc_positive"] > 0.9 and out["classifier"]["max_abs_err_card_vs_cpu"] <= chip_smoke.TRAIN_TOL
+    assert set(out["steps_s"]) == {"annotate_coverage", "annotate_pair_coverage", "phase_records", "evaluate_vargraph"}
+    assert out["kernel_holds"]["rank"] and out["kernel_holds"]["chain_window"]
+    assert chip_smoke.rank4_ops.rank is chip_smoke.WRAPPERS["rank"] and chip_smoke.probes.chain_window is chip_smoke.WRAPPERS["chain_window"]
+    assert len(again().gt) == out["vcf_records"]
+    with pytest.raises(AssertionError, match="real-size floor"):
+        chip_smoke.coverage_trimmed_phase(dev, genome2, str(tmp_path / "leg2b"), trimmed=small)
