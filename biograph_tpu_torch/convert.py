@@ -1,5 +1,5 @@
-"""Carry a seqset, a readmap, a reference or a classifier between the two
-packages as numpy arrays.
+"""Carry a seqset, a readmap, a reference, a classifier or k-mer counts
+and sets between the two packages as numpy arrays.
 
 The JAX package's ``Seqset`` / ``Readmap`` fields, taken as numpy arrays by
 the caller, become the port's tensors on a chosen device, and back.  The
@@ -100,3 +100,26 @@ def classifier_from_arrays(arrays: dict, device="cuda"):
     last = max(int(k[1:]) for k in params if k[0] == "w")
     cls = Classifier if params[f"w{last}"].shape[1] == 1 else GtClassifier
     return cls(params, arrays["mean"], arrays["std"], device)
+
+
+def kmer_counts_from_numpy(arrays: dict):
+    """A port ``KmerCounts`` from ``k`` and the arrays ``kmers`` (uint64 in
+    the JAX package, every value below 2^62), ``fwd`` and ``rev``: a JAX
+    ``KmerCounts`` passes as ``vars(counts)``."""
+    from biograph_tpu_torch.kmers.count import KmerCounts
+
+    return KmerCounts(
+        k=int(arrays["k"]),
+        kmers=np.asarray(arrays["kmers"]).astype(np.int64),
+        fwd=np.asarray(arrays["fwd"], np.int64),
+        rev=np.asarray(arrays["rev"], np.int64),
+    )
+
+
+def kmer_set_from_numpy(arrays: dict, device="cuda"):
+    """A port ``KmerSet`` on ``device`` from ``k`` and the sorted canonical
+    ``kmers``, as a JAX ``KmerSet.save_arrays()`` gives them."""
+    from biograph_tpu_torch.kmers.kmer_set import KmerSet
+
+    kmers = np.ascontiguousarray(np.asarray(arrays["kmers"]).astype(np.int64))
+    return KmerSet(k=int(arrays["k"]), kmers=torch.from_numpy(kmers).to(resolve_device(device)))

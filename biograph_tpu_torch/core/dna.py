@@ -152,7 +152,7 @@ def kmer_mask(k: int) -> int:
     return (1 << (2 * k)) - 1
 
 
-def _check_k(k: int) -> None:
+def check_k(k: int) -> None:
     if not 0 < k <= MAX_K:
         raise ValueError(f"k-mers are int64 here: 0 < k <= {MAX_K}, not {k}")
 
@@ -162,7 +162,7 @@ def kmers_from_codes(codes: torch.Tensor, lengths, k: int):
 
     codes: [R, L] uint8; lengths: [R]; returns (kmers int64 [R, L-k+1],
     valid bool [R, L-k+1]), first base in the most significant bits."""
-    _check_k(k)
+    check_k(k)
     R, L = codes.shape
     Wn = L - k + 1
     dev = codes.device
@@ -180,12 +180,17 @@ def kmers_from_codes(codes: torch.Tensor, lengths, k: int):
 
 
 def revcomp_kmer(kmers: torch.Tensor, k: int) -> torch.Tensor:
-    """Reverse complement of packed k-mers."""
-    _check_k(k)
-    out = torch.zeros_like(kmers)
-    for i in range(k):
-        out = (out << 2) | (3 - ((kmers >> (2 * i)) & 3))
-    return out
+    """Reverse complement of packed k-mers: complement every base, reverse
+    the 2-bit groups of the 64-bit word by swaps of halves, and shift the k
+    bases down.  The swap masks clear the bits an arithmetic right shift of
+    a negative int64 fills, so the result equals the uint64 one."""
+    check_k(k)
+    x = ~kmers
+    for shift, mask in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                        (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
+        x = ((x >> shift) & mask) | ((x & mask) << shift)
+    x = ((x >> 32) & MASK32) | (x << 32)
+    return (x >> (64 - 2 * k)) & kmer_mask(k)
 
 
 def canonicalize_kmers(kmers: torch.Tensor, k: int):

@@ -1,7 +1,10 @@
-"""Vectorized FASTQ/FASTA ingestion (numpy only, no torch).
+"""FASTQ/FASTA ingestion (numpy and the native scanner, no torch).
 
-Copy of ``biograph_tpu/io/fastq.py`` without the native C++ scanner: the
-vectorized numpy parser is the only path here.
+Copy of ``biograph_tpu/io/fastq.py``.  ``read_fastq`` parses with the
+native C++ scanner (``native/``) unless the caller asks for names or passes
+``use_native=False``, the explicit numpy route.  One deliberate difference:
+where the JAX package swallows any failure of the native path and parses
+with numpy instead, this one raises when the scanner cannot be built.
 
 Counterpart of the reference's read importer / fastq parser
 (modules/build_seqset/read_importer.h:18, modules/bio_format/fastq.cpp).
@@ -14,6 +17,7 @@ device-ready layout every downstream stage consumes.
 from __future__ import annotations
 
 import gzip
+import os
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -52,6 +56,19 @@ def _read_maybe_gz(path: str) -> bytes:
         return f.read()
 
 
+def _buf_maybe_gz(path: str):
+    """File contents with no copy when possible: plain files mmap, gzipped
+    files decompress (RAM)."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+        f.seek(0)
+        if head == b"\x1f\x8b":
+            return gzip.open(f).read()
+    if not os.path.getsize(path):
+        return b""
+    return np.memmap(path, np.uint8, "r")
+
+
 def _split_lines(buf: bytes) -> Tuple[np.ndarray, np.ndarray]:
     """Return (line_starts, line_ends) for every line in buf (no newlines)."""
     arr = np.frombuffer(buf, dtype=np.uint8)
@@ -85,9 +102,35 @@ def read_fastq(
     path: str,
     with_quals: bool = True,
     with_names: bool = False,
+    use_native: bool = True,
+    spill_dir: str | None = None,
 ) -> ReadBatch:
-    """Parse a (possibly gzipped) FASTQ file into a ReadBatch."""
-    buf = _read_maybe_gz(path)
+    """Parse a (possibly gzipped) FASTQ file into a ReadBatch.
+
+    Uses the native C++ scanner (``biograph_tpu_torch.native``) unless names
+    are wanted or ``use_native`` is False; a scanner that cannot be built
+    raises.  spill_dir (native path) keeps the code/qual matrices on disk
+    so WGS-scale imports stay within bounded host RAM; plain files are
+    mmap'd, never copied.
+    """
+    native = use_native and not with_names
+    buf = _buf_maybe_gz(path) if native else _read_maybe_gz(path)
+    if native:
+        from biograph_tpu_torch.native import fastq_scan_native
+
+        try:
+            codes, quals, lengths = fastq_scan_native(buf, with_quals=with_quals, spill_dir=spill_dir)
+        except ValueError:
+            raise ValueError(f"{path}: malformed FASTQ")
+        nonblank = (
+            bool(buf.strip())
+            if isinstance(buf, bytes)
+            else bool((~np.isin(buf, np.frombuffer(b" \t\r\n", np.uint8))).any())
+        )
+        if codes.shape[0] == 0 and nonblank:
+            # non-empty file that parsed to zero reads = truncated record
+            raise ValueError(f"{path}: malformed FASTQ (truncated record)")
+        return ReadBatch(codes=codes, lengths=lengths, quals=quals)
     arr = np.frombuffer(buf, dtype=np.uint8)
     starts, ends = _split_lines(buf)
     n_lines = len(starts) - (1 if len(starts) and starts[-1] >= len(buf) else 0)
@@ -108,7 +151,7 @@ def read_fastq(
             arr, starts[3:n_lines:4], ends[3:n_lines:4], pad_to=seq_rows.shape[1]
         )
         qraw = qrows[:, : seq_rows.shape[1]]
-        # store phred (ASCII-33)
+        # store phred (ASCII-33), matching the native scanner
         quals = np.where(qraw >= 33, qraw - 33, 0).astype(np.uint8)
     names = None
     if with_names:

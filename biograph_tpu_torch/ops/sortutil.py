@@ -19,7 +19,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from biograph_tpu_torch.core.dna import MASK32, prefix_mask_words
+from biograph_tpu_torch.core.dna import MASK32
 
 _SIGN = -(1 << 63)
 
@@ -62,13 +62,18 @@ def is_prefix_of_next(words: torch.Tensor, lengths: torch.Tensor) -> torch.Tenso
 
     Requires sorted order.  Row i is a prefix of row i+1 iff
     lengths[i] <= lengths[i+1] and the first lengths[i] bases agree; with
-    zero padding that's a masked word comparison.
+    zero padding that's a masked word comparison, made a word column at a
+    time so the temporaries are [N], not [N, W].
     """
     W = words.shape[1]
-    mask = prefix_mask_words(lengths[:-1], W)
-    pref = ((words[1:] & mask) == words[:-1]).all(dim=1) & (
-        lengths[:-1] <= lengths[1:]
-    )
+    short = lengths[:-1].to(torch.int64)
+    pref = short <= lengths[1:]
+    for w in range(W):
+        # bases of row i in word w: clamp(length - 16*w, 0, 16)
+        inword = torch.clamp(short - 16 * w, 0, 16)
+        shift = 2 * (16 - inword)
+        mask = ((MASK32 >> shift) << shift) & MASK32
+        pref &= (words[1:, w] & mask) == words[:-1, w]
     return torch.cat([pref, pref.new_zeros(1)])
 
 

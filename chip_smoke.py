@@ -59,6 +59,24 @@ phasing and the joint graph on coverage's general route, which must launch
 rank and chain_window; a region of 200 records is held to a CPU copy, the
 genotypes to the library's truth, and a classifier trained on the card to
 the same training on the CPU.
+The create stage follows.  The main path's reads are built again under a
+budget that forces at least 8 passes of the prefix-partitioned build, equal
+to the in-memory store in every field, whose own peak must stay within the
+plan's bytes a row (``create_partitioned_scaled``).  Leg 3, leg 2's library
+with 0.5 % substitutions written as an interleaved FASTQ, goes through the
+CLI on the card, ``create --paired --correct``, cold and warm: the native
+scan equal to the numpy parser, every stored field, the k-mer count text,
+the filter's stats and the corrected reads equal to the JAX package's CPU
+run (``tests/data/torch_create_leg.json``), count_kmers and 4096 corrected
+reads equal to CPU copies (``create_corrected``).  The scaled leg's store
+and leg 3's merge on the card into the store of both read sets, mergemap
+entries prefixes of their merged entries, migrated readmaps' coverage equal
+to their own stores' (``merge_checks``).  Then a whole-genome library,
+100-base reads at 10x over a genome from the seed, sized so the in-memory
+sort would need twice the detected budget, is built under that budget and
+under half of it, equal in every field, each peak within its budget and its
+entries, its readmap built and 4096 reads found
+(``create_partitioned_full``).
 Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
@@ -2125,6 +2143,387 @@ def coverage_trimmed_phase(dev, genome, tmp, trimmed=TRIMMED, region_records=REG
     return out, launches, again
 
 
+# ---------------------------------------------------------------------------
+# the create stage (leg 3) and merge
+# ---------------------------------------------------------------------------
+
+CREATE_LEG_FILE = os.path.join(DATA, "torch_create_leg.json")
+ERROR_RATE = 0.005  # leg 3: uniform substitutions over leg 2's library
+ERROR_SEED = SEED + 41
+CREATE_ARGS = ["--paired", "--correct"]  # and the defaults: k 23, min k-mer count 2, 8 corrections a read
+
+
+def corrected_leg_reads(genome, trimmed=None):
+    """Leg 3: leg 2's trimmed, paired, diploid library
+    (``trimmed_paired_library``, seed SEED + 31) with ERROR_RATE uniform
+    substitutions (each base of a read independently, the new base one of
+    the other three at random) drawn from ERROR_SEED.  Returns (codes,
+    lengths), mates interleaved."""
+    codes, lengths, _, _ = trimmed_paired_library(genome, **(trimmed or TRIMMED))
+    rng = np.random.default_rng(ERROR_SEED)
+    hit = (rng.random(codes.shape) < ERROR_RATE) & (np.arange(codes.shape[1])[None, :] < lengths[:, None])
+    codes = codes.copy()
+    codes[hit] = (codes[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    return codes.astype(np.uint8), lengths
+
+
+def write_fastq(path, codes, lengths):
+    """Reads as FASTQ (quality 'I' throughout), read 2i and 2i + 1 mates."""
+    text = np.frombuffer(b"ACGT", np.uint8)[codes]
+    with open(path, "wb") as f:
+        for i, n in enumerate(lengths.tolist()):
+            f.write(b"@r%d/%d\n%s\n+\n%s\n" % (i // 2, i % 2 + 1, text[i, :n].tobytes(), b"I" * n))
+    return path
+
+
+def sha256(arr) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def artifact_digests(bgt_dir):
+    """sha256 of every field of the .bgt's seqset and readmap as stored."""
+    from biograph_tpu_torch.core import container
+    from biograph_tpu_torch.convert import READMAP_DTYPES, SEQSET_DTYPES
+
+    out = {}
+    for part, fields in (("seqset", SEQSET_DTYPES), ("readmap", READMAP_DTYPES)):
+        r = container.ArtifactReader(os.path.join(bgt_dir, part), part, mmap=False)
+        out[part] = {name: sha256(r.array(name)) for name in fields}
+        if part == "seqset":
+            out["n_entries"] = int(r.scalar("n_entries"))
+    return out
+
+
+def create_leg_digests(bgt_dir, kmer_text, n_kmers, filter_stats, codes, lengths, corrections):
+    """What the committed file holds of one create of leg 3: the k-mer
+    count text, the filter's stats, the corrected reads and every stored
+    field."""
+    with open(kmer_text, "rb") as f:
+        text_sha = sha256(np.frombuffer(f.read(), np.uint8))
+    return {
+        "kmers": {"distinct": int(n_kmers), "text_sha256": text_sha},
+        "filter_stats": {k: int(v) for k, v in sorted(filter_stats.items())},
+        "correction": {
+            "corrected": int((np.asarray(corrections) > 0).sum()),
+            "dropped": int((np.asarray(lengths) == 0).sum()),
+            "codes_sha256": sha256(np.asarray(codes, np.uint8)),
+            "lengths_sha256": sha256(np.asarray(lengths, np.int32)),
+        },
+        **artifact_digests(bgt_dir),
+    }
+
+
+def read_create_leg_file(path=CREATE_LEG_FILE):
+    with open(path) as f:
+        return json.load(f)
+
+
+CREATE_KERNELS = ("rank_cum",)  # every seqset_from_entries: the builds, create and merge
+SCALED_PASSES = 8  # the least passes the scaled leg's partitioned build must take
+FULL_COVERAGE = 10  # the whole-genome leg: 100-base reads at 10x over a genome made from the seed
+FULL_OVER_BUDGET = 2  # ... sized so the in-memory sort would need twice the detected budget
+SAMPLED = 4096  # reads found, reads corrected on a CPU copy, mergemap entries checked
+WINDOWS = 64  # coverage windows a migrated readmap is held on
+
+
+def counted(fn, names=None):
+    """(fn(), {kernel: launches in fn()}): the counts set to 0 before."""
+    names = names or tuple(WRAPPERS)
+    for name in names:
+        WRAPPERS[name].launches = 0
+    out = fn()
+    return out, {name: WRAPPERS[name].launches for name in names}
+
+
+def own_peak(dev, fn):
+    """(fn(), seconds, the device bytes fn() allocated at its peak above
+    what was allocated before it; None off the card)."""
+    if dev.type != "cuda":
+        return (*timed(fn), None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, seconds = timed(fn)
+    return out, seconds, torch.cuda.max_memory_allocated() - base
+
+
+SEQSET_FIELDS = ("fixed", "prev_words", "prev_cum", "entry_sizes", "shared", "pop_sel")
+
+
+def require_same_seqset(name, got, want):
+    if got.n_entries != want.n_entries or got.max_entry_len != want.max_entry_len:
+        raise AssertionError(f"{name}: {got.n_entries} entries, want {want.n_entries}")
+    for field in SEQSET_FIELDS:
+        a, b = getattr(got, field), getattr(want, field)
+        if not torch.equal(a, b.to(a.device)):
+            raise AssertionError(f"{name}: seqset field {field} differs")
+
+
+def create_partitioned_scaled_phase(dev, codes, lengths, ss):
+    """The main path's reads built again under a budget that forces at
+    least SCALED_PASSES passes, equal to the main path's in-memory store in
+    every field; and the in-memory build alone, whose peak must stay within
+    the plan's bytes a row."""
+    from biograph_tpu_torch.build import seqset_build as sb
+    from biograph_tpu_torch.core.dna import words_for_bases
+
+    rows = 2 * int(lengths.sum())
+    W = words_for_bases(codes.shape[1])
+    out = {"rows": rows, "plan_row_bytes": sb.suffix_row_bytes(W)}
+    (one, launches), out["in_memory_s"], peak = own_peak(dev, lambda: counted(lambda: build_seqset(codes, lengths, device=dev)))
+    out["in_memory_peak_bytes"] = peak
+    out["in_memory_bytes_per_row"] = None if peak is None else peak / rows
+    if peak is not None and peak > rows * out["plan_row_bytes"]:
+        raise AssertionError(f"the in-memory build peaked at {peak} bytes, over the plan's {rows * out['plan_row_bytes']}")
+    require_same_seqset("in-memory build", one, ss)
+    del one
+    budget = rows * out["plan_row_bytes"] // (SCALED_PASSES + 2)
+    (parted, launches), out["seconds"], out["peak_bytes"] = own_peak(dev, lambda: counted(lambda: build_seqset(codes, lengths, budget=budget, device=dev)))
+    plan = parted.build_info["plan"]
+    # the passes alone, without the final assembly (seqset_from_entries over
+    # every entry), which the plan does not bound
+    _, _, out["passes_peak_bytes"] = own_peak(dev, lambda: sb._entries_partitioned(codes, lengths, W, plan, True, dev))
+    if out["passes_peak_bytes"] is not None and out["passes_peak_bytes"] > budget + parted.n_entries * (8 * W + 4):
+        raise AssertionError(f"the scaled leg's passes peaked at {out['passes_peak_bytes']}, over the budget and the entries")
+    out.update(budget=budget, d=plan.d, passes=parted.build_info["passes"], per_pass_rows=plan.per_pass_rows,
+               chunk_rows=plan.chunk_rows, rank_cum_launches=launches["rank_cum"])
+    if out["passes"] < SCALED_PASSES:
+        raise AssertionError(f"the scaled leg's build took {out['passes']} passes, not {SCALED_PASSES} or more")
+    require_same_seqset("partitioned build of the scaled leg", parted, ss)
+    return out
+
+
+def full_genome_reads(n_reads, read_len=READ_LEN, coverage=FULL_COVERAGE):
+    """(genome, codes, lengths): n_reads reads of read_len bases at
+    ``coverage`` over a random genome from seed SEED + 51, the first half
+    reverse-complemented."""
+    rng = np.random.default_rng(SEED + 51)
+    genome = rng.integers(0, 4, n_reads * read_len // coverage, dtype=np.uint8)
+    starts = rng.integers(0, len(genome) - read_len, n_reads)
+    codes = genome[starts[:, None] + np.arange(read_len)]
+    half = n_reads // 2
+    codes[:half] = (3 - codes[:half])[:, ::-1]
+    return genome, np.ascontiguousarray(codes), np.full(n_reads, read_len, np.int32)
+
+
+def create_partitioned_full_phase(dev, bytes_per_row, budget=None):
+    """The path a whole-genome library takes: a read set whose in-memory
+    sort, at the bytes a row measured on the card, would need
+    FULL_OVER_BUDGET times the detected budget; built under that budget and
+    under half of it, equal in every field, each peak within its budget and
+    the output entries; the readmap built and SAMPLED reads found."""
+    from biograph_tpu_torch.build import seqset_build as sb
+    from biograph_tpu_torch.runtime.resources import MemoryBudget
+
+    budget = budget or MemoryBudget.detect(dev).bytes
+    W = (READ_LEN + 15) // 16
+    per_read = 2 * READ_LEN * max(bytes_per_row or 0, sb.suffix_row_bytes(W))
+    n_reads = -(-FULL_OVER_BUDGET * budget // per_read)
+    genome, codes, lengths = full_genome_reads(int(n_reads))
+    rows = 2 * int(lengths.sum())
+    plan = sb.build_plan(rows, W, READ_LEN, budget)
+    if plan.in_memory:
+        raise AssertionError("the whole-genome leg fits the plan's in-memory sort")
+    out = {"reads": int(n_reads), "genome": len(genome), "rows": rows, "bytes_per_row_measured": bytes_per_row,
+           "in_memory_sort_bytes": plan.sort_bytes, "builds": []}
+    first = None
+    for b in (budget, budget // 2):
+        (ss, launches), seconds, peak = own_peak(dev, lambda: counted(lambda: build_seqset(codes, lengths, budget=b, device=dev)))
+        entries_bytes = ss.n_entries * (8 * W + 4)
+        build = {"budget": b, "passes": ss.build_info["passes"], "d": ss.build_info["plan"].d,
+                 "chunk_rows": ss.build_info["plan"].chunk_rows, "build_s": seconds, "peak_bytes": peak,
+                 "entries_bytes": entries_bytes, "rank_cum_launches": launches["rank_cum"]}
+        out["builds"].append(build)
+        if build["passes"] < 2:
+            raise AssertionError(f"the whole-genome build under {b} bytes took one pass")
+        if peak is not None and peak > b + entries_bytes:
+            raise AssertionError(f"the build under {b} bytes peaked at {peak}, over the budget and its entries")
+        if first is None:
+            first = ss
+            out["entries"] = ss.n_entries
+            rm, out["readmap_s"] = timed(lambda: build_readmap(ss, codes, lengths, device=dev))
+            out["reads_per_s"] = n_reads / (seconds + out["readmap_s"])
+            pick = np.sort(np.random.default_rng(SEED + 52).choice(n_reads, SAMPLED, replace=False))
+            (found, found_launches) = counted(lambda: ss.d.find(torch.from_numpy(codes[pick]).to(dev), torch.from_numpy(lengths[pick]).to(dev)))
+            if not bool((found.valid & (found.size == READ_LEN)).all()):
+                raise AssertionError("a sampled read of the whole-genome leg was not found")
+            out["found"] = SAMPLED
+            out["rank_launches_find"] = found_launches["rank"]
+            del rm, found
+            ss.__dict__.pop("_entry_cache", None)
+        else:
+            require_same_seqset("the whole-genome builds under two budgets", ss, first)
+        del ss
+    del first
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def correction_profile(dev, ks, codes, lengths, rows=1 << 14):
+    """One batch of correct_reads (its first ``rows`` reads) with the early
+    exit and with every one of its L steps, the latter under
+    torch.profiler: kernel launches a step, the device's busy time, and the
+    batch's seconds both ways.  None off the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biograph_tpu_torch.build import correct as corr
+
+    if dev.type != "cuda":
+        return None
+    L = codes.shape[1]
+    args = (ks, torch.from_numpy(codes[:rows]).to(dev), torch.from_numpy(lengths[:rows]).to(dev), 8, 2, 6)
+    corr.correct_batch(*args)
+    _, exit_s = timed(lambda: corr.correct_batch(*args))
+    saved, corr.SYNC_EVERY = corr.SYNC_EVERY, 1 << 30
+    try:
+        _, all_s = timed(lambda: corr.correct_batch(*args))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            corr.correct_batch(*args)
+            torch.cuda.synchronize()
+    finally:
+        corr.SYNC_EVERY = saved
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in kernels)
+    busy = sum(_device_us(e) for e in kernels) / 1e6
+    return {"rows": rows, "steps": L, "launches_all_steps": launches, "launches_a_step": launches / L,
+            "device_busy_s_all_steps": busy, "seconds_all_steps": all_s, "seconds_early_exit": exit_s,
+            "idle_share_all_steps": max(0.0, 1 - busy / all_s)}
+
+
+def create_corrected_phase(dev, genome, tmp):
+    """Leg 3 through the CLI on the card, cold and warm: ``create --paired
+    --correct --device cuda`` on its FASTQ, every stored field held to the
+    JAX package's CPU run (``tests/data/torch_create_leg.json``), and the
+    k-mer counts, filter and correction create makes, run again here, held
+    to it too; the native scan against the numpy parser, count_kmers
+    against a CPU copy, correct_reads against a CPU copy on SAMPLED reads.
+    Returns (what to print, the cold create's launches, its .bgt, the
+    corrected reads it stored)."""
+    from biograph_tpu_torch import cli
+    from biograph_tpu_torch.build.correct import correct_reads
+    from biograph_tpu_torch.io.fastq import read_fastq
+    from biograph_tpu_torch.kmers.count import count_kmers
+    from biograph_tpu_torch.kmers.kmer_set import KmerSet
+
+    want = read_create_leg_file()
+    codes, lengths = corrected_leg_reads(genome)
+    fq = write_fastq(os.path.join(tmp, "leg3.fq"), codes, lengths)
+    batch, scan_s = timed(lambda: read_fastq(fq))
+    numpy_batch, numpy_s = timed(lambda: read_fastq(fq, use_native=False))
+    for name in ("codes", "lengths", "quals"):
+        if not np.array_equal(getattr(batch, name), getattr(numpy_batch, name)):
+            raise AssertionError(f"leg 3: the native scan's {name} differ from the numpy parser's")
+    if not (np.array_equal(batch.codes, codes) and np.array_equal(batch.lengths, lengths)):
+        raise AssertionError("leg 3: the scanned reads are not the reads written")
+    out = {"reads": len(lengths), "scan_s": scan_s, "numpy_scan_s": numpy_s, "runs": {}}
+    bgt = None
+    for run in ("cold", "warm"):
+        path = os.path.join(tmp, f"leg3_{run}.bgt")
+        (_, launches), seconds = timed(lambda: counted(lambda: cli.main(["create", "--reads", fq, "--out", path, *CREATE_ARGS, "--device", dev.type])))
+        with open(os.path.join(path, "qc", "create_stats.json")) as f:
+            stats = json.load(f)
+        got = artifact_digests(path)
+        for key in ("seqset", "readmap", "n_entries"):
+            if got[key] != want[key]:
+                raise AssertionError(f"leg 3 ({run}): the card's create differs from the JAX CPU leg's file in {key}")
+        out["runs"][run] = {"seconds": seconds, "stages": stats["timings"], "launches": launches}
+        if bgt is None:
+            bgt, create_launches = path, launches
+    out["n_entries"] = want["n_entries"]
+
+    kc, out["kmerize_s"] = timed(lambda: count_kmers(batch.codes, batch.lengths, k=23, device=dev))
+    text = os.path.join(tmp, "leg3_kmers.txt")
+    kc.write_text(text)
+    kstats = {}
+    ks = KmerSet.from_counts(kc, min_count=2, stats_out=kstats, device=dev)
+    res, out["correct_s"] = timed(lambda: correct_reads(ks, batch.codes, batch.lengths, max_corrections=8, min_good_run=2))
+    got = create_leg_digests(bgt, text, len(kc.kmers), kstats, res.codes, res.lengths, res.corrections)
+    for key in ("kmers", "filter_stats", "correction"):
+        if got[key] != want[key]:
+            raise AssertionError(f"leg 3: {key} differ from the JAX CPU leg's file: {got[key]} vs {want[key]}")
+    out.update(distinct_kmers=got["kmers"]["distinct"], **{k: got["correction"][k] for k in ("corrected", "dropped")})
+    out["correction_batch"] = correction_profile(dev, ks, batch.codes, batch.lengths)
+
+    cpu_kc, out["cpu_kmerize_s"] = timed(lambda: count_kmers(batch.codes, batch.lengths, k=23, device="cpu"))
+    for name in ("kmers", "fwd", "rev"):
+        if not np.array_equal(getattr(cpu_kc, name), getattr(kc, name)):
+            raise AssertionError(f"leg 3: count_kmers on the card differs from a CPU copy in {name}")
+    pick = np.sort(np.random.default_rng(SEED + 53).choice(len(lengths), SAMPLED, replace=False))
+    cpu_ks = KmerSet(k=ks.k, kmers=ks.kmers.cpu())
+    cpu_res, out["cpu_correct_s"] = timed(lambda: correct_reads(cpu_ks, batch.codes[pick], batch.lengths[pick], max_corrections=8, min_good_run=2))
+    for name in ("codes", "lengths", "corrections"):
+        if not np.array_equal(getattr(cpu_res, name), getattr(res, name)[pick]):
+            raise AssertionError(f"leg 3: correct_reads on the card differs from a CPU copy in {name}")
+    out["cpu_checked_reads"] = SAMPLED
+    keep = res.lengths > 0
+    return out, create_launches, bgt, (res.codes[keep], res.lengths[keep])
+
+
+def merge_checks(dev, ss, rm, codes, lengths, leg3_bgt, leg3_reads, genome):
+    """The scaled leg's store merged with leg 3's on the card: equal in
+    every field to the store of both read sets built at once; SAMPLED
+    entries of each input a prefix of their merged entry; each migrated
+    readmap's coverage on WINDOWS windows of the genome equal to its own
+    store's.  Returns (what to print, the merge's launches)."""
+    from biograph_tpu_torch.api import BioGraph
+    from biograph_tpu_torch.build.merge import merge_seqsets, migrate_readmap
+
+    leg3 = BioGraph(leg3_bgt, device=dev)
+    ((merged, maps), launches), merge_s = timed(lambda: counted(lambda: merge_seqsets([ss, leg3.seqset])))
+    out = {"entries": [ss.n_entries, leg3.seqset.n_entries], "merged_entries": merged.n_entries, "merge_s": merge_s}
+    moved, out["migrate_s"] = timed(lambda: [migrate_readmap(r, merged, m) for r, m in zip((rm, leg3.readmap), maps)])
+    c3, l3 = leg3_reads
+    both, out["build_both_s"] = timed(lambda: build_seqset(np.concatenate([codes, c3]), np.concatenate([lengths, l3]), device=dev))
+    require_same_seqset("the merged store against the store of both read sets", merged, both)
+    del both
+    rng = np.random.default_rng(SEED + 54)
+    L = merged.max_entry_len
+    for src, mm in zip((ss, leg3.seqset), maps):
+        ids = torch.from_numpy(rng.choice(src.n_entries, SAMPLED, replace=False)).to(dev)
+        mine, theirs = src.d.sequences(ids, L), merged.d.sequences(mm[ids], L)
+        size = src.entry_sizes[ids].to(torch.int64)
+        within = torch.arange(L, device=dev)[None, :] < size[:, None]
+        if not bool(((mine == theirs) | ~within).all() & (merged.entry_sizes[mm[ids]].to(torch.int64) >= size).all()):
+            raise AssertionError("a mergemap entry is not a prefix of its merged entry")
+    # every migrated readmap entry hangs on a merged entry that begins with
+    # its read, as its old entry did
+    for own, new in zip((rm, leg3.readmap), moved):
+        ids = torch.from_numpy(rng.choice(own.num_entries, SAMPLED, replace=False)).to(dev)
+        rl = own.read_lengths[ids].to(torch.int64)
+        within = torch.arange(L, device=dev)[None, :] < rl[:, None]
+        old_seq = own.seqset.d.sequences(own.entry_of_rm[ids], L)
+        # the same (read id, strand) in the migrated readmap
+        key_new = new.read_ids * 2 + new.is_forward.to(torch.int64)
+        order = torch.argsort(key_new)
+        key_old = own.read_ids[ids] * 2 + own.is_forward[ids].to(torch.int64)
+        new_pos = order[torch.searchsorted(key_new[order], key_old)]
+        if not bool((new.read_lengths[new_pos] == own.read_lengths[ids]).all()):
+            raise AssertionError("migration changed a read's length")
+        new_seq = merged.d.sequences(new.entry_of_rm[new_pos], L)
+        if not bool(((old_seq == new_seq) | ~within).all()):
+            raise AssertionError("a migrated read hangs on a merged entry that does not begin with it")
+    # coverage: equal on the scaled leg (one read length, every probe range
+    # decided by whole entries); on leg 3 a window's probe range can stop
+    # being unique once the other sample's entries join, as in the JAX
+    # package (ROADMAP §3), so its windows that differ are counted
+    starts = rng.integers(0, len(genome) - 150, WINDOWS)
+    win = torch.from_numpy(genome[starts[:, None] + np.arange(150)]).to(dev)
+    wlen = torch.full((WINDOWS,), 150, dtype=torch.int32, device=dev)
+    covered = []
+    for name, own, new in (("scaled", rm, moved[0]), ("leg3", leg3.readmap, moved[1])):
+        a, b = own.coverage(win, wlen), new.coverage(win, wlen)
+        differ = int(((a[0] != b[0]) | (a[1] != b[1])).any(dim=1).sum())
+        if name == "scaled" and differ:
+            raise AssertionError(f"the migrated {name} readmap's coverage differs from its own store's")
+        out[f"{name}_windows_differing"] = differ
+        covered.append(int((a[0] + a[1]).sum()))
+    out["coverage_reads_summed"] = covered
+    return out, launches
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -2214,6 +2613,19 @@ def main():
     if profile_to is None:
         del again_scored, again_trimmed
 
+    # the create stage: the partitioned build of the main path's reads;
+    # leg 3 (what users send) through the CLI, held to the JAX CPU leg's
+    # file; the merge of the two stores; a whole-genome library past the
+    # card's budget
+    parted, seconds = timed(lambda: create_partitioned_scaled_phase(dev, codes, lengths, ss))
+    say(phase="create_partitioned_scaled", card=card, **parted)
+    (corrected, create_launches, leg3_bgt, leg3_reads), seconds = timed(lambda: create_corrected_phase(dev, genome, tmp.name))
+    say(phase="create_corrected", card=card, seconds=seconds, **corrected)
+    (merged, merge_launches), seconds = timed(lambda: merge_checks(dev, ss, rm, codes, lengths, leg3_bgt, leg3_reads, genome))
+    say(phase="merge_checks", ok=True, card=card, seconds=seconds, **merged)
+    full, seconds = timed(lambda: create_partitioned_full_phase(dev, parted["in_memory_bytes_per_row"]))
+    say(phase="create_partitioned_full", card=card, seconds=seconds, **full)
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
@@ -2227,6 +2639,8 @@ def main():
         r["launches_discover_no_trunc"] = no_trunc["warm"]["launches"][r["name"]]
         r["launches_coverage_scored"] = cov_scored_launches[r["name"]]
         r["launches_coverage_trimmed"] = cov_trimmed_launches[r["name"]]
+        r["launches_create"] = create_launches[r["name"]]
+        r["launches_merge"] = merge_launches[r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:

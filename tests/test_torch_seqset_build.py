@@ -115,10 +115,13 @@ def test_build_entry_points_refuse_what_they_cannot_do():
         tbuild.build_seqset(codes[:0], lengths[:0], device="cpu")
     with pytest.raises(ValueError, match="no nonempty reads"):
         tbuild.build_seqset(codes, np.zeros_like(lengths), device="cpu")
-    with pytest.raises(NotImplementedError, match="partitioned"):
-        tbuild.build_seqset(codes, lengths, budget=1000, device="cpu")
+    # a budget the in-memory sort cannot hold takes the partitioned passes
+    parted = tbuild.build_seqset(codes, lengths, budget=1000, device="cpu")
+    assert parted.build_info["passes"] >= 2
     ts = tbuild.build_seqset(codes, lengths, budget=1 << 30, device="cpu")
-    assert ts.n_entries > 0
+    assert ts.n_entries > 0 and ts.build_info["passes"] == 1
+    for name in ("entry_sizes", "shared", "fixed", "prev_words", "prev_cum", "pop_sel"):
+        assert torch.equal(getattr(parted, name), getattr(ts, name)), name
     if not torch.cuda.is_available():
         # the default device is the card: no silent move to the CPU
         with pytest.raises(RuntimeError, match="CUDA is not available"):
