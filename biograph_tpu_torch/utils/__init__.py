@@ -1,9 +1,10 @@
 """SDK helpers (torch).
 
-Counterpart of ``biograph_tpu/utils/__init__.py``: region-scoped variant
-discovery, an ASCII view of a region and the Bayesian genotyper over
-depths, each the one-liner a user of the SDK reaches for.  The discovery
-and the coverage run where the sample's store lies.
+Counterpart of ``biograph_tpu/utils/__init__.py``: region- and
+breakpoint-scoped variant discovery, an ASCII view of a region and the
+Bayesian genotyper over depths, each the one-liner a user of the SDK
+reaches for.  The discovery and the coverage run where the sample's store
+lies.
 """
 
 from __future__ import annotations
@@ -40,6 +41,34 @@ def find_region_variants(bg, ref, contig: str, start: int, end: int, min_support
     if bg.readmap is not None:
         cov = bg.seq_coverage(np.asarray(ref.flat[c.start + start : c.start + end]))
     return RegionResult(chrom=contig, start=start, end=end, variants=recs, coverage=cov)
+
+
+def find_breakpoint_variants(bg, ref, contig: str, start: int, end: int, buf_len: int = 300, min_support: int = 3) -> RegionResult:
+    """Targeted discovery around approximate breakpoints: events whose ends
+    land within buf_len of ``start`` and ``end``, from the split/pair SV
+    engine, so a large deletion between distant breakpoints is found
+    without assembling the span.  Runs where the sample's readmap lies."""
+    from biograph_tpu_torch.variants.pop_tracer import SvOptions, discover_structural, reads_from_readmap
+
+    if start >= end:
+        raise ValueError("start must be < end")
+    ref.contig_by_name(contig)
+    if bg.readmap is None:
+        raise ValueError("breakpoint search needs a readmap")
+    codes, lens, mate = reads_from_readmap(bg.readmap)
+    recs = discover_structural(ref, codes, lens, mate_of=mate, opt=SvOptions(min_sv_reads=min_support), device=bg.readmap.device)
+    lo, hi = start - buf_len, end + buf_len
+    out = []
+    for r in recs:
+        if r["chrom"] != contig:
+            continue
+        p0 = r["pos"] - 1
+        p1 = p0 + len(r["ref"])
+        if abs(p0 - start) <= buf_len and abs(p1 - end) <= buf_len:
+            out.append(r)
+        elif lo <= p0 and p1 <= hi and abs(r.get("svlen", 0)) >= 50:
+            out.append(r)
+    return RegionResult(chrom=contig, start=start, end=end, variants=out)
 
 
 def visualize(bg, ref, contig: str, start: int, end: int, width: int = 80) -> str:

@@ -77,6 +77,34 @@ sort would need twice the detected budget, is built under that budget and
 under half of it, equal in every field, each peak within its budget and its
 entries, its readmap built and 4096 reads found
 (``create_partitioned_full``).
+Leg 4 is the product's pipeline on a library users send for SV calling:
+``sv_paired_library`` (seed 12406) over the same genome, a diploid sample
+with 1000 het and 1000 hom SNPs, 100 het indels, 30 hom and 10 het
+deletions of 50-5000 and 50-1000 bases, one hom deletion of 49 000 bases,
+20 novel insertions of 60-300 bases and 4 of 1000-2000, as 150 000 pairs of
+100-base reads (fragments of mean 400), half trimmed, with 0.5 %
+substitutions, an interleaved FASTQ and a FASTA.  ``cli.main(["full_pipeline",
+..., "--paired", "--correct", "--classifier-model", ...])`` runs create,
+discovery (the wavefront, then the SV pass), coverage, grm and the
+classifier on the card, cold: every stage's VCF (but its ``##source=``
+line, and QUAL of the classifier's), every feature array, the records by
+engine and the SV pass's counts equal to the JAX package's CPU run
+(``tests/data/torch_pipeline_sv_leg.json``), results.vcf's QUAL the phred
+of probabilities within 1e-5 of the file's, every stage done at its first
+attempt; it must launch rank_cum, push4, rank and chain_window, and the
+first and the widest call of each in each stage (create's rank_cum,
+discovery's push4, rank and chain_window, coverage's rank and
+chain_window) is kept and held against its plain version on the same
+inputs.  ``--resume`` must run no stage and leave results.vcf as it was;
+``--resume --rerun`` of each stage gives its warm seconds and the same
+artifacts.  The SV engine then runs by parts on the leg's store (the split
+events alone, the breakend walks alone), each equal to the file, and every
+clip cluster's walk on the card equals the host oracle on a CPU copy of
+the index; the walk's steps are counted, and its device operations over
+its first two blocks of steps under torch.profiler.  The FM-index of the genome is
+built on the card and on the CPU, equal to each other and to the file's
+digests, and 65 536 substrings and 4096 random 40-mers are found and
+located on both.  The planted SVs' recall by class is printed, not gated.
 Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
@@ -90,12 +118,17 @@ main path runs twice more, warm and then with each stage under
 ``torch.profiler``, and each stage's cold and warm time, the device's busy
 time and its heaviest kernels go to OUT.json; the ``kernels`` and
 ``rank_past_l2`` lines then also split a ``rank4_tiled`` call into its
-kernels.
+kernels.  The ``kernels`` line's ``launches_*`` columns are each kernel's
+launches in each leg's counted run (``launches_pipeline``: leg 4's cold
+``full_pipeline``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -2524,6 +2557,582 @@ def merge_checks(dev, ss, rm, codes, lengths, leg3_bgt, leg3_reads, genome):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# leg 4: the product's pipeline, with structural variants
+# ---------------------------------------------------------------------------
+
+SV_SEED = SEED + 61  # 12406
+SV_LIBRARY = dict(
+    n_pairs=150_000, n_het=1000, n_hom=1000, n_indel=100,
+    hom_dels=30, het_dels=10, big_del=49_000, ins=20, long_ins=4,
+)
+SV_GAP = 2000  # least bases between two structural variants
+SV_CHROM = "chr1"
+PIPELINE_LEG_FILE = os.path.join(DATA, "torch_pipeline_sv_leg.json")
+PIPELINE_FLAGS = ["--paired", "--correct"]
+# the command as the committed file records it; MODEL_FILE is the same file
+PIPELINE_ARGS = [*PIPELINE_FLAGS, "--classifier-model", "tests/data/torch_scaled_leg_qual_model.npz"]
+PIPELINE_VCFS = ("discovery", "coverage", "grm", "results")
+PIPELINE_STAGES = ("create", "discovery", "coverage", "grm", "qual_classifier")
+PIPELINE_KERNELS = ("rank_cum", "push4", "rank", "chain_window")
+# the kernels each stage of the cold run must call, each call kept held
+# against its plain version
+PIPELINE_HOLDS = {"create": ("rank_cum",), "discovery": ("push4", "rank", "chain_window"), "coverage": ("rank", "chain_window")}
+BWT_QUERIES, BWT_ABSENT = 1 << 16, 4096
+
+
+def _plain_rank(blocks, b, pos, pos_end=None):
+    out = tuple(rank4_ops.rank_blocks_plain(blocks, b, p) for p in ((pos,) if pos_end is None else (pos, pos_end)))
+    return out[0] if pos_end is None else out
+
+
+# kernel: (module, attribute the path calls it by, plain version, positions
+# of the stored tables among its arguments, position of the argument whose
+# elements are the call's lanes)
+PIPELINE_CALL_SITES = {
+    "rank_cum": ("biograph_tpu_torch.build.seqset_build", "rank_cum", rank_cum_ops.rank_cum_plain, (), 0),
+    "push4": ("biograph_tpu_torch.ops.rank4", "push4", rank4_ops.push4_plain, (0, 1, 2), 3),
+    "rank": ("biograph_tpu_torch.ops.rank4", "rank", _plain_rank, (0,), 1),
+    "chain_window": ("biograph_tpu_torch.index.probes", "chain_window", rank4_ops.chain_window_plain, (0, 1, 2), 4),
+}
+
+
+def _copy(x):
+    """A clone of a tensor, or of each tensor of a tuple; anything else as is."""
+    return x.clone() if torch.is_tensor(x) else tuple(_copy(y) for y in x) if isinstance(x, tuple) else x
+
+
+class _Kept:
+    """A kernel's wrapper in place of itself: it calls the wrapper and, for
+    each stage of a full_pipeline run, keeps the first call and the call
+    over the most lanes, their lanes and outputs cloned, the stored tables
+    by reference.  ``launches`` is the wrapper's own, which the wrapper
+    counts through this name."""
+
+    def __init__(self, name, real, tables, lanes_at, stage, kept):
+        self.name, self.real, self.tables, self.lanes_at, self.stage, self.kept = name, real, tables, lanes_at, stage, kept
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+    def __call__(self, *args):
+        out = self.real(*args)
+        calls = self.kept.setdefault((self.stage[0], self.name), {"calls": 0})
+        calls["calls"] += 1
+        lanes = args[self.lanes_at].numel()
+        if "first" not in calls or lanes > calls["widest"][0]:
+            call = (lanes, [a if i in self.tables else _copy(a) for i, a in enumerate(args)], _copy(out))
+            calls.setdefault("first", call)
+            calls["widest"] = call
+        return out
+
+
+@contextlib.contextmanager
+def kept_pipeline_calls():
+    """While the block runs, each kernel of PIPELINE_CALL_SITES keeps its
+    calls by the stage of the full_pipeline run that made them (``_Kept``):
+    yields {(stage, kernel): {"calls": n, "first": call, "widest": call}}."""
+    from biograph_tpu_torch.runtime import stages as stages_mod
+
+    kept, stage = {}, [None]
+    real_run = stages_mod.StageRunner.run
+
+    def run(self, stage_list, *args, **kw):
+        def tagged(s):
+            def fn(runner):
+                stage[0] = s.name
+                try:
+                    return s.fn(runner)
+                finally:
+                    stage[0] = None
+
+            return dataclasses.replace(s, fn=fn)
+
+        return real_run(self, [tagged(s) for s in stage_list], *args, **kw)
+
+    saved = []
+    try:
+        stages_mod.StageRunner.run = run
+        for name, (module, attr, _, tables, lanes_at) in PIPELINE_CALL_SITES.items():
+            m = importlib.import_module(module)
+            saved.append((m, attr, getattr(m, attr)))
+            setattr(m, attr, _Kept(name, getattr(m, attr), tables, lanes_at, stage, kept))
+        yield kept
+    finally:
+        stages_mod.StageRunner.run = real_run
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
+
+
+def hold_kept_calls(kept):
+    """Every kept call against its kernel's plain version on the same
+    inputs, and every stage's kernels of PIPELINE_HOLDS reached: {stage:
+    {kernel: {calls, first_lanes, widest_lanes}}}."""
+    missing = [(s, k) for s, names in PIPELINE_HOLDS.items() for k in names if (s, k) not in kept]
+    if missing:
+        raise AssertionError(f"pipeline_sv: the cold run's stages never called {missing}")
+    out = {}
+    for (stage, name), calls in sorted(kept.items(), key=str):
+        plain = PIPELINE_CALL_SITES[name][2]
+        for which in ("first", "widest"):
+            lanes, args, got = calls[which]
+            require_equal(f"{name} in the pipeline's {stage} stage, {which} call ({lanes} lanes)", got, plain(*args))
+        out.setdefault(stage, {})[name] = {"calls": calls["calls"], "first_lanes": calls["first"][0], "widest_lanes": calls["widest"][0]}
+    return out
+
+
+def leg_genome(genome_len=GENOME):
+    """The 2 Mb genome of every leg: the first draw from seed SEED."""
+    return np.random.default_rng(SEED).integers(0, 4, genome_len, dtype=np.uint8)
+
+
+def sv_paired_library(genome, n_pairs, n_het, n_hom, n_indel, hom_dels, het_dels, big_del, ins, long_ins,
+                      seed=SV_SEED, read_len=READ_LEN, error_rate=ERROR_RATE, gap=SV_GAP):
+    """Leg 4: a paired library of a diploid sample with structural variants.
+
+    Structural variants, at least ``gap`` bases apart and in random order
+    along the genome: hom_dels hom deletions of 50-5000 bases (log-uniform),
+    het_dels het deletions of 50-1000, one hom deletion of big_del bases
+    (none when 0), ins hom novel insertions of 60-300 bases and long_ins of
+    1000-2000.  Small variants on a grid of 20 bases, at least 300 bases
+    from any structural variant: n_het het and n_hom hom SNPs and n_indel
+    het indels of 1-8 bases, half of them insertions.  Each pair comes from
+    one haplotype: a fragment of normal length (mean 400, sd 40), read 1
+    its first read_len bases, read 2 the reverse complement of its last;
+    half the reads trimmed at the 3' end by 1-30 bases; then error_rate
+    uniform substitutions.  Returns (codes [2 n_pairs, read_len], lengths,
+    truth), mates interleaved; truth["sv"] lists (class, 0-based left,
+    svlen) and truth["small"] the small variants as (0-based pos, ref, alt)
+    strings in VCF form."""
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    code = "ACGT"
+
+    def loguniform(lo, hi, n):
+        return np.round(np.exp(rng.uniform(np.log(lo), np.log(hi), n))).astype(np.int64)
+
+    events = [("hom_del", int(n), 2) for n in loguniform(50, 5000, hom_dels)]
+    events += [("het_del", int(n), int(h)) for n, h in zip(loguniform(50, 1000, het_dels), rng.integers(0, 2, het_dels))]
+    events += [("big_del", big_del, 2)] if big_del else []
+    events += [("ins", int(n), 2) for n in rng.integers(60, 301, ins)]
+    events += [("long_ins", int(n), 2) for n in rng.integers(1000, 2001, long_ins)]
+    events = [events[i] for i in rng.permutation(len(events))]
+    spans = np.array([n if kind.endswith("del") else 0 for kind, n, _ in events], np.int64)
+    margin = 1000
+    free = G - 2 * margin - int(spans.sum()) - gap * len(events)
+    if free < 0:
+        raise ValueError(f"{len(events)} structural variants do not fit {G} bases")
+    cuts = np.sort(rng.integers(0, free + 1, len(events)))
+    lefts = margin + cuts + gap * np.arange(len(events)) + np.concatenate([[0], np.cumsum(spans)[:-1]])
+    sv = []  # (class, left, svlen, haplotype or 2, inserted codes)
+    for (kind, n, hap), left in zip(events, lefts.tolist()):
+        if kind.endswith("del"):
+            sv.append((kind, left, -n, hap, np.zeros(0, np.uint8)))
+        else:
+            sv.append((kind, left, n, hap, rng.integers(0, 4, n, dtype=np.uint8)))
+    # small variants on a grid of 20, away from every structural variant
+    grid = np.arange(200, G - 200, 20)
+    near = np.zeros(len(grid), bool)
+    for _, left, svlen, _, _ in sv:
+        near |= (grid >= left - 300) & (grid < left + max(-svlen, 0) + 300)
+    slots = rng.choice(grid[~near], n_het + n_hom + n_indel, replace=False)
+    het, hom, ind = np.sort(slots[:n_het]), np.sort(slots[n_het : n_het + n_hom]), np.sort(slots[n_het + n_hom :])
+    het_alt = ((genome[het] + 1 + rng.integers(0, 3, n_het)) % 4).astype(np.uint8)
+    hom_alt = ((genome[hom] + 1 + rng.integers(0, 3, n_hom)) % 4).astype(np.uint8)
+    het_hap = rng.integers(0, 2, n_het)
+    ind_hap = rng.integers(0, 2, n_indel)
+    ind_len = rng.integers(1, 9, n_indel)
+    is_ins = np.arange(n_indel) % 2 == 0
+    ins_seq = [rng.integers(0, 4, n, dtype=np.uint8) for n in ind_len]
+    haps = []
+    for h in range(2):
+        hap = genome.copy()
+        hap[np.concatenate([het[het_hap == h], hom])] = np.concatenate([het_alt[het_hap == h], hom_alt])
+        # (0-based position of the first changed base, bases removed, bases added)
+        edits = [(int(ind[i]) + 1, 0 if is_ins[i] else int(ind_len[i]), ins_seq[i] if is_ins[i] else np.zeros(0, np.uint8))
+                 for i in np.nonzero(ind_hap == h)[0]]
+        edits += [(left, max(-svlen, 0), seq) for _, left, svlen, on, seq in sv if on in (h, 2)]
+        pieces, prev = [], 0
+        for at, removed, added in sorted(edits, key=lambda e: e[0]):
+            pieces += [hap[prev:at], added]
+            prev = at + removed
+        pieces.append(hap[prev:])
+        haps.append(np.concatenate(pieces))
+    hap_of = rng.integers(0, 2, n_pairs)
+    frag = np.clip(np.round(rng.normal(400, 40, n_pairs)), read_len, 700).astype(np.int64)
+    codes = np.zeros((2 * n_pairs, read_len), np.uint8)
+    for h in range(2):
+        sel = np.nonzero(hap_of == h)[0]
+        start = rng.integers(0, len(haps[h]) - frag[sel])
+        codes[2 * sel] = haps[h][start[:, None] + np.arange(read_len)]
+        codes[2 * sel + 1] = (3 - haps[h][(start + frag[sel] - read_len)[:, None] + np.arange(read_len)])[:, ::-1]
+    lengths = np.full(2 * n_pairs, read_len, np.int32)
+    trimmed = rng.random(2 * n_pairs) < 0.5
+    lengths[trimmed] -= rng.integers(1, 31, int(trimmed.sum())).astype(np.int32)
+    inside = np.arange(read_len)[None, :] < lengths[:, None]
+    hit = (rng.random(codes.shape) < error_rate) & inside
+    codes[hit] = (codes[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    codes = np.where(inside, codes, 0).astype(np.uint8)
+    small = [(int(p), code[genome[p]], code[a]) for p, a in zip(np.concatenate([het, hom]), np.concatenate([het_alt, hom_alt]))]
+    for i in range(n_indel):
+        p = int(ind[i])
+        if is_ins[i]:
+            small.append((p, code[genome[p]], code[genome[p]] + "".join(code[c] for c in ins_seq[i])))
+        else:
+            small.append((p, "".join(code[c] for c in genome[p : p + 1 + int(ind_len[i])]), code[genome[p]]))
+    truth = {"sv": [(kind, left, svlen) for kind, left, svlen, _, _ in sv], "small": sorted(small)}
+    return codes, lengths, truth
+
+
+def write_leg_inputs(tmp, genome, codes, lengths, name="leg4"):
+    """(FASTQ path, FASTA path): the reads interleaved, the genome as one
+    contig SV_CHROM."""
+    from biograph_tpu_torch.core import dna
+
+    fa = os.path.join(tmp, name + ".fa")
+    with open(fa, "w") as f:
+        f.write(f">{SV_CHROM}\n{dna.codes_to_seq(genome)}\n")
+    return write_fastq(os.path.join(tmp, name + ".fq"), codes, lengths), fa
+
+
+def vcf_digest(path, drop_qual=False):
+    """(sha256, records) of a VCF's text without its ``##source=`` line;
+    with drop_qual the QUAL column of every record is left out too."""
+    import hashlib
+
+    h, n = hashlib.sha256(), 0
+    with open(path) as f:
+        for line in f:
+            if line.startswith("##source="):
+                continue
+            if not line.startswith("#"):
+                n += 1
+                if drop_qual:
+                    cols = line.split("\t")
+                    line = "\t".join(cols[:5] + cols[6:])
+            h.update(line.encode())
+    return h.hexdigest(), n
+
+
+def pipeline_digests(out_dir):
+    """What the committed file holds of one full_pipeline run: each VCF's
+    digest and record count (results.vcf without QUAL, which is the phred of
+    the classifier's float probabilities) and every feature array's."""
+    analysis = os.path.join(out_dir, "analysis")
+    out = {}
+    for name in PIPELINE_VCFS:
+        sha, n = vcf_digest(os.path.join(analysis, name + ".vcf"), drop_qual=name == "results")
+        out[name] = {"sha256": sha, "records": n}
+    feats = np.load(os.path.join(analysis, "features.npz"))
+    out["features"] = {k: {"dtype": str(feats[k].dtype), "shape": list(feats[k].shape), "sha256": sha256(feats[k])} for k in sorted(feats.files)}
+    return out
+
+
+def sv_record_digest(records):
+    """sha256 of SV records as text, one (chrom, pos, ref, alt, support,
+    pair_support, svlen) line each in the engine's order."""
+    import hashlib
+
+    text = "".join(f"{r['chrom']}\t{r['pos']}\t{r['ref']}\t{r['alt']}\t{r['support']}\t{r['pair_support']}\t{r['svlen']}\n" for r in records)
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def bwt_digests(sa_sample, occ_words, occ_cum, counts, sentinel_pos):
+    """sha256 of the FM-index's stored arrays (occ_words as uint32)."""
+    return {
+        "sa_sample": sha256(np.asarray(sa_sample, np.int64)),
+        "occ_words": sha256(np.asarray(occ_words).view(np.uint32) if np.asarray(occ_words).dtype == np.int32 else np.asarray(occ_words, np.uint32)),
+        "occ_cum": sha256(np.asarray(occ_cum, np.int64)),
+        "counts": [int(c) for c in counts],
+        "sentinel_pos": int(sentinel_pos),
+    }
+
+
+def sv_recall(records, truth, pad=8):
+    """Per SV class: (planted, found), found = a record within pad bases of
+    the event's left with the same svlen."""
+    got = [(int(r.pos), len(r.alt) - len(r.ref)) for r in records if "," not in r.alt]
+    out = {}
+    for kind, left, svlen in truth["sv"]:
+        hit = any(abs(p - left) <= pad and n == svlen for p, n in got)
+        planted, found = out.get(kind, (0, 0))
+        out[kind] = (planted + 1, found + int(hit))
+    return {k: {"planted": v[0], "found": v[1]} for k, v in sorted(out.items())}
+
+
+def read_pipeline_leg_file(path=PIPELINE_LEG_FILE):
+    with open(path) as f:
+        return json.load(f)
+
+
+def stage_seconds(out_dir):
+    with open(os.path.join(out_dir, "qc", "timings.json")) as f:
+        return json.load(f)
+
+
+def discovery_stats(out_dir):
+    with open(os.path.join(out_dir, "qc", "discovery_stats.json")) as f:
+        return json.load(f)
+
+
+def file_sha(path):
+    with open(path, "rb") as f:
+        return sha256(np.frombuffer(f.read(), np.uint8))
+
+
+def qual_of(p):
+    """QUAL as ``apply_to_vcf`` writes it for a probability p."""
+    return max(round(float(-10 * np.log10(max(1 - p, 1e-10))), 1), 0.0)
+
+
+def require_qual(name, vcf, want_prob, tol):
+    """QUAL and FILTER of each record of a classified VCF, in the file's
+    order, against probabilities tol or less from want_prob: QUAL between
+    the QUALs of want_prob - tol and want_prob + tol (QUAL grows with p),
+    FILTER PASS or lowq as want_prob is at least 0.5, but where tol could
+    move it across."""
+    records = read_vcf(vcf)
+    if len(records) != len(want_prob):
+        raise AssertionError(f"{name}: {len(records)} classified records, the JAX CPU leg {len(want_prob)}")
+    for i, (r, p) in enumerate(zip(records, want_prob)):
+        lo, hi = qual_of(max(p - tol, 0.0)), qual_of(min(p + tol, 1.0))
+        if r.qual is None or not lo <= r.qual <= hi:
+            raise AssertionError(f"{name}: record {i} ({r.chrom}:{r.pos}) has QUAL {r.qual}; p {p} within {tol} gives {lo}-{hi}")
+        if abs(p - 0.5) > tol and r.filter != ("PASS" if p >= 0.5 else "lowq"):
+            raise AssertionError(f"{name}: record {i} ({r.chrom}:{r.pos}) has FILTER {r.filter} at p {p}")
+
+
+def require_manifest(name, out_dir, stages=PIPELINE_STAGES):
+    """Each of these stages of the run's manifest done at its first
+    attempt: a stage that failed and passed on its retry fails here."""
+    with open(os.path.join(out_dir, "run_manifest.json")) as f:
+        recs = json.load(f)["stages"]
+    bad = {s: (recs.get(s, {}).get("status"), recs.get(s, {}).get("attempts")) for s in stages
+           if recs.get(s, {}).get("status") != "done" or recs.get(s, {}).get("attempts") != 1}
+    if bad:
+        raise AssertionError(f"{name}: stages not done at their first attempt (status, attempts): {bad}")
+
+
+def require_pipeline(name, out_dir, want):
+    """Every stage's artifact, the records by engine and the classifier's
+    stage output (results.vcf's QUAL and FILTER) of a full_pipeline run
+    against the committed JAX run."""
+    got = pipeline_digests(out_dir)
+    for stage in want["stages"]:
+        if got[stage] != want["stages"][stage]:
+            raise AssertionError(f"{name}: {stage} differs from the JAX CPU leg's: {got[stage] if stage != 'features' else '(features)'}")
+    stats = discovery_stats(out_dir)
+    by_engine = {"wavefront": stats["n_wavefront"], "sv": stats["n_sv"]}
+    if by_engine != want["records_by_engine"]:
+        raise AssertionError(f"{name}: records by engine {by_engine}, the JAX CPU leg {want['records_by_engine']}")
+    require_qual(name, os.path.join(out_dir, "analysis", "results.vcf"), want["classifier_prob"], PROB_TOL)
+
+
+def pipeline_sv_phase(dev, genome, tmp, library=None, want=None):
+    """Leg 4: ``full_pipeline --paired --correct`` with the committed
+    classifier through the port's CLI on the card, cold; every stage's
+    artifact held to the JAX CPU run's file (the caller holds the cold
+    run's launches of PIPELINE_KERNELS).  Then ``--resume``, which must
+    run no stage and leave results.vcf as it was, and ``--rerun`` of each
+    stage in turn (its warm seconds), each output again equal to the file.
+    Returns (what to print, the cold run's launches, the run's dir, the
+    FASTA, the truth)."""
+    from biograph_tpu_torch import cli
+
+    want = want or read_pipeline_leg_file()
+    codes, lengths, truth = sv_paired_library(genome, **(library or SV_LIBRARY))
+    fq, fa = write_leg_inputs(tmp, genome, codes, lengths)
+    out_dir = os.path.join(tmp, "leg4")
+    argv = ["full_pipeline", "--reads", fq, "--ref", fa, "--out", out_dir, *PIPELINE_FLAGS, "--classifier-model", MODEL_FILE, "--device", str(dev)]
+    out = {"reads": int(len(lengths))}
+    with kept_pipeline_calls() as kept:
+        (_, launches), out["cold_s"] = timed(lambda: counted(lambda: cli.main(argv)))
+    require_manifest("pipeline_sv cold", out_dir)
+    out["cold_stage_s"] = stage_seconds(out_dir)
+    require_pipeline("pipeline_sv cold", out_dir, want)
+    # the cold run's first and widest call of each kernel in each stage
+    # against its plain version on the same inputs
+    out["kernel_holds"] = hold_kept_calls(kept)
+    del kept
+    stats = discovery_stats(out_dir)
+    sv = stats["sv"]
+    for key in ("unplaced_reads", "split_events", "clip_candidates"):
+        if sv[key] != want["sv_engine"][key]:
+            raise AssertionError(f"pipeline_sv: the SV pass's {key} {sv[key]}, the JAX CPU leg's {want['sv_engine'][key]}")
+    if sv["split_events"] < 1 or sv["breakend_lanes"] < 1:
+        raise AssertionError(f"pipeline_sv: the SV pass had {sv['split_events']} split events and {sv['breakend_lanes']} breakend lanes")
+    out["sv_pass"] = {**sv, "seconds": stats["stage_s"]["sv"], "share_of_discovery": stats["stage_s"]["sv"] / out["cold_stage_s"]["discovery"]}
+    out["discovery_stage_s"] = stats["stage_s"]
+
+    # --resume: nothing runs again, results.vcf stays as it was
+    results = os.path.join(out_dir, "analysis", "results.vcf")
+    before = (file_sha(results), os.stat(results).st_mtime_ns, json.load(open(os.path.join(out_dir, "run_manifest.json")))["stages"])
+    (_, resumed), out["resume_s"] = timed(lambda: counted(lambda: cli.main(argv + ["--resume"])))
+    after = (file_sha(results), os.stat(results).st_mtime_ns, json.load(open(os.path.join(out_dir, "run_manifest.json")))["stages"])
+    if after != before or any(resumed.values()):
+        raise AssertionError("pipeline_sv: --resume ran a stage again or changed results.vcf")
+    # --rerun of each stage: its warm seconds, its output the same
+    warm = {}
+    for stage in PIPELINE_STAGES:
+        timed(lambda: cli.main(argv + ["--resume", "--rerun", stage]))
+        require_manifest(f"pipeline_sv --rerun {stage}", out_dir)
+        warm[stage] = stage_seconds(out_dir)[stage]
+        require_pipeline(f"pipeline_sv --rerun {stage}", out_dir, want)
+    out["warm_stage_s"] = warm
+    out["recall"] = sv_recall(read_vcf(results), truth)
+    return out, launches, out_dir, fa
+
+
+def device_ops(fn):
+    """(fn(), device operations it ran: kernels and copies, under
+    torch.profiler; None when the profiler sees no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return fn(), None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return res, (n or None)
+
+
+def walk_device_ops(seeds, lefts, ek, ec, index, opt, steps):
+    """Device operations of the breakend walk on these lanes
+    (``_breakend_walk``, the loop alone, without the copies in and out),
+    counted under torch.profiler, which makes each operation slow: the walk
+    runs its first WALK_SYNC_EVERY steps, then its first two blocks of
+    them; one block's count is the difference, the same at every block (the
+    steps' tensor code does not depend on the data), and the walk of
+    ``steps`` steps is the first block and the rest as blocks, short of its
+    last exit check.  A walk of two blocks or fewer is counted whole.
+    (first block, a block, the walk) or None off the card."""
+    from biograph_tpu_torch.variants import pop_tracer as pt
+
+    dev = index.ref_codes.device
+    if dev.type != "cuda":
+        return None
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int64).copy()).to(dev)
+
+    lanes = (t(seeds), t(lefts), t(ek), t(ec))
+    defaults = inspect.signature(pt._assemble_breakends_batch).parameters
+    confirm, max_assembly = defaults["confirm"].default, defaults["max_assembly"].default
+
+    def walk(n):
+        return device_ops(lambda: pt._breakend_walk(*lanes, index, confirm, n, int(opt.cluster_pad)))[1]
+
+    W = pt.WALK_SYNC_EVERY
+    if steps <= 2 * W:
+        return {"walk": walk(max_assembly)}
+    first, two = walk(W), walk(2 * W)
+    if first is None or two is None:
+        return None
+    return {"first_block": first, "a_block": two - first, "walk": first + (-(-steps // W) - 1) * (two - first)}
+
+
+def sv_engine_checks(dev, bgt, fa, want):
+    """The SV pass of leg 4's store on the card, by its parts: the reads
+    from the readmap, the scan's counts, the records of the split events
+    alone and of the breakend walks alone (the records by engine), each
+    equal to the JAX CPU leg's; every clip cluster's walk on the card equal
+    to the host oracle ``_assemble_breakend`` on a CPU copy of the index,
+    its steps counted and its device operations counted over two blocks of
+    steps (``walk_device_ops``)."""
+    from biograph_tpu_torch.api import BioGraph
+    from biograph_tpu_torch.index.reference import Reference
+    from biograph_tpu_torch.variants import pop_tracer as pt
+    from biograph_tpu_torch.variants.align import RefKmerIndex
+
+    want = want["sv_engine"]
+    bg = BioGraph(bgt, device=dev)
+    ref = Reference.from_fasta(fa)
+    (codes, lens, mate), read_s = timed(lambda: pt.reads_from_readmap(bg.readmap))
+    if len(lens) != want["reads"] or sha256(codes) != want["codes_sha256"]:
+        raise AssertionError("sv_engine: the reads from the readmap differ from the JAX CPU leg's")
+    opt = pt.SvOptions()
+    index, index_s = timed(lambda: RefKmerIndex.build(ref.flat, opt.k, is_n=ref.is_n, device=dev))
+    stats = {}
+    (pl, raw, clips, ek, ec), scan_s = timed(lambda: pt._sv_scan_reads(index, codes, lens, opt, stats=stats))
+    got = {"reads": len(lens), "codes_sha256": want["codes_sha256"], "unplaced_reads": int((pl.pos < 0).sum()),
+           "split_events": len(raw), "clip_candidates": len(clips), "edge_keys": len(ek)}
+    out = {"read_s": read_s, "index_s": index_s, "scan_s": scan_s}
+    for name, events, cands in (("sv_split", raw, []), ("sv_breakend", [], clips)):
+        recs, out[name + "_s"] = timed(lambda: pt._sv_finalize(ref, index, events, cands, ek, ec, pl.pos, pl.is_rc, lens, mate, opt))
+        got[name] = {"records": len(recs), "sha256": sv_record_digest(recs)}
+    if got != {k: want[k] for k in got}:
+        raise AssertionError(f"sv_engine: {got} differs from the JAX CPU leg's {want}")
+    groups = pt._clip_clusters(clips, index.k, opt)
+    walk = {}
+    seeds = np.array([g[2] for g in groups], np.int64)
+    lefts = np.array([g[0] for g in groups], np.int64)
+    card, walk_s = timed(lambda: pt._assemble_breakends_batch(seeds, lefts, ek, ec, index, opt, stats=walk))
+    cpu_index = RefKmerIndex.build(ref.flat, opt.k, is_n=ref.is_n, device="cpu")
+    t0 = time.perf_counter()
+    host = [pt._assemble_breakend(g[3], ek, ec, cpu_index, g[0], opt) for g in groups]
+    oracle_s = time.perf_counter() - t0
+    for i, (h, c) in enumerate(zip(host, card)):
+        if (h is None) != (c is None) or (h is not None and (not np.array_equal(h[0], c[0]) or h[1] != c[1])):
+            raise AssertionError(f"sv_engine: the walk of cluster {i} (left {groups[i][0]}) differs from the host oracle")
+    out.update(clusters=len(groups), assembled=sum(c is not None for c in card), walk_steps=walk["walk_steps"],
+               walk_device_ops=walk_device_ops(seeds, lefts, ek, ec, index, opt, walk["walk_steps"]) if groups else None,
+               walk_s=walk_s, oracle_s=oracle_s, longest_insertion=max((len(c[0]) for c in card if c), default=0))
+    return out
+
+
+def bwt_checks(dev, genome, want):
+    """The FM-index of the genome on the card: cold and warm builds, equal
+    to a CPU copy's and to the JAX CPU leg's digests; find of BWT_QUERIES
+    substrings of the genome (20-100 bases) and BWT_ABSENT random 40-mers
+    equal to the CPU copy's, every substring found; locate of each found
+    range's first row equal to the CPU copy's and spelling the query."""
+    from biograph_tpu_torch.index import bwt as bwt_mod
+
+    g = np.random.default_rng(SV_SEED + 1)
+    bwt, cold_s = timed(lambda: bwt_mod.RefBwt.build(genome, device=dev))
+    _, warm_s = timed(lambda: bwt_mod.RefBwt.build(genome, device=dev))
+    cpu, cpu_s = timed(lambda: bwt_mod.RefBwt.build(genome, device="cpu"))
+
+    def digests(b):
+        return bwt_digests(b.sa_sample.cpu().numpy(), torch.stack([o.words for o in b.occ]).cpu().numpy(),
+                           torch.stack([o.cum for o in b.occ]).cpu().numpy(), b.counts, b.sentinel_pos)
+
+    if digests(bwt) != digests(cpu) or digests(bwt) != want["bwt"]:
+        raise AssertionError("bwt: the FM-index on the card differs from its CPU copy or from the JAX CPU leg's digests")
+    G = len(genome)
+    qlen = g.integers(20, 101, BWT_QUERIES)
+    start = g.integers(0, G - 100, BWT_QUERIES)
+    q = np.zeros((BWT_QUERIES + BWT_ABSENT, 100), np.uint8)
+    q[:BWT_QUERIES] = genome[start[:, None] + np.arange(100)]
+    q[:BWT_QUERIES] = np.where(np.arange(100)[None, :] < qlen[:, None], q[:BWT_QUERIES], 0)
+    q[BWT_QUERIES:, :40] = g.integers(0, 4, (BWT_ABSENT, 40))
+    ql = np.concatenate([qlen, np.full(BWT_ABSENT, 40)]).astype(np.int32)
+    (lo, hi), find_s = timed(lambda: bwt.find(q, ql))
+    clo, chi = cpu.find(q, ql)
+    if not (np.array_equal(lo, clo) and np.array_equal(hi, chi)):
+        raise AssertionError("bwt: find on the card differs from the CPU copy")
+    if (hi[:BWT_QUERIES] <= lo[:BWT_QUERIES]).any():
+        raise AssertionError("bwt: a substring of the genome was not found")
+    rows = torch.from_numpy(lo[:BWT_QUERIES].copy())
+    pos, locate_s = timed(lambda: bwt_mod._bwt_locate(bwt.d, rows.to(dev)).cpu().numpy())
+    if not np.array_equal(pos, bwt_mod._bwt_locate(cpu.d, rows).numpy()):
+        raise AssertionError("bwt: locate on the card differs from the CPU copy")
+    spelled = genome[np.clip(pos[:, None] + np.arange(100), 0, G - 1)]
+    ok = (spelled == q[:BWT_QUERIES]) | (np.arange(100)[None, :] >= qlen[:, None])
+    if not ok.all():
+        raise AssertionError("bwt: a located position does not spell its query")
+    absent = int((hi[BWT_QUERIES:] > lo[BWT_QUERIES:]).sum())
+    return {"build_cold_s": cold_s, "build_warm_s": warm_s, "cpu_copy_build_s": cpu_s, "find_s": find_s,
+            "locate_s": locate_s, "queries": BWT_QUERIES, "absent_queries": BWT_ABSENT, "absent_found": absent}
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -2626,6 +3235,19 @@ def main():
     full, seconds = timed(lambda: create_partitioned_full_phase(dev, parted["in_memory_bytes_per_row"]))
     say(phase="create_partitioned_full", card=card, seconds=seconds, **full)
 
+    # leg 4: the product's pipeline through the port's CLI, then its SV
+    # engine by parts and the FM-index, held to the JAX CPU run's file
+    want4 = read_pipeline_leg_file()
+    (leg4, pipeline_launches, leg4_dir, leg4_fa), seconds = timed(lambda: pipeline_sv_phase(dev, genome, tmp.name, want=want4))
+    missing = [k for k in PIPELINE_KERNELS if pipeline_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"pipeline_sv: the cold run launched no {missing} kernel")
+    say(phase="pipeline_sv", card=card, seconds=seconds, launches={k: pipeline_launches[k] for k in PIPELINE_KERNELS}, **leg4)
+    sv_checked, seconds = timed(lambda: sv_engine_checks(dev, os.path.join(leg4_dir, "sample.bgt"), leg4_fa, want4))
+    say(phase="sv_engine", ok=True, card=card, seconds=seconds, **sv_checked)
+    bwt_checked, seconds = timed(lambda: bwt_checks(dev, genome, want4))
+    say(phase="bwt", ok=True, card=card, seconds=seconds, **bwt_checked)
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
@@ -2641,6 +3263,7 @@ def main():
         r["launches_coverage_trimmed"] = cov_trimmed_launches[r["name"]]
         r["launches_create"] = create_launches[r["name"]]
         r["launches_merge"] = merge_launches[r["name"]]
+        r["launches_pipeline"] = pipeline_launches[r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:

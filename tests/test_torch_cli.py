@@ -174,7 +174,8 @@ def test_help_lists_what_exists(capsys):
     with pytest.raises(SystemExit):
         tcli.main(["--help"])
     out = capsys.readouterr().out
-    assert "{version,create,kmers,merge}" in out and "discovery" not in out
+    assert "{version,create,kmers,merge,reference,ref2bwt,bwtquery,discovery,coverage,full_pipeline,grm,qual_classifier,gt_classifier}" in out
+    assert "squareoff" not in out and "vdb" not in out
     tcli.main(["version"])
     assert capsys.readouterr().out.startswith("biograph_tpu_torch version ")
     with pytest.raises(SystemExit):
