@@ -3,10 +3,10 @@
 Counterpart of ``biograph_tpu/api.py``: ``BioGraph``, ``Sequence``,
 ``SeqsetEntry``, ``ReadmapRead`` and ``ReferenceRange``.  ``BioGraph(path,
 device="cuda")`` opens the ``.bgt`` layout (``seqset``, ``readmap``,
-``metadata.json``) that either package saves, with its tensors on
+``metadata.json``) that either package saves, or the reference's ``.bg``
+layout through ``io/bgimport.open_bg_dir``, with its tensors on
 ``device``; like every entry point it raises when CUDA is absent unless the
-caller asks for the CPU.  The reference's ``.bg`` layout waits for
-``io/bgimport.py``.  Navigation (``push_front``, ``pop_front``,
+caller asks for the CPU.  Navigation (``push_front``, ``pop_front``,
 ``truncate``) runs one-lane batches through the seqset's query engine.
 """
 
@@ -167,8 +167,8 @@ class ReferenceRange:
 
 
 class BioGraph:
-    """Open a sample archive in the ``.bgt`` layout, its tensors on
-    ``device``."""
+    """Open a sample archive, ``.bgt`` (either package's) or ``.bg`` (the
+    reference's), its tensors on ``device``."""
 
     def __init__(self, path: str, device="cuda"):
         from biograph_tpu_torch.core import container
@@ -190,10 +190,10 @@ class BioGraph:
             if os.path.isdir(rm_path):
                 self.readmap = Readmap.load(rm_path, self.seqset, dev)
         elif os.path.isfile(bgt_seqset):
-            raise NotImplementedError(
-                f"{path}: the reference's .bg layout needs io/bgimport.py, "
-                "which is not ported yet"
-            )
+            # the reference's .bg layout (spiral_file ZIP members)
+            from biograph_tpu_torch.io.bgimport import open_bg_dir
+
+            self.seqset, self.readmap, self.metadata = open_bg_dir(path, dev)
         else:
             raise FileNotFoundError(f"{path}: no seqset found (.bgt or .bg)")
 

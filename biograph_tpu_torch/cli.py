@@ -4,15 +4,20 @@ Counterpart of ``biograph_tpu/cli.py`` (the reference's command surface,
 modules/biograph/main.cpp:51-70, and its pipeline, python/biograph/tools/
 bgbinary_cmds.py:332-372): ``version``, ``reference``, ``create``,
 ``kmers``, ``merge``, ``ref2bwt``, ``bwtquery``, ``discovery``,
-``coverage``, ``grm``, ``qual_classifier``, ``gt_classifier`` and
-``full_pipeline`` take the JAX package's arguments and write the same
-artifacts, plus ``--device`` (default ``cuda``; the tests pass ``cpu``).
-``grm`` takes ``--cache-dir`` where the JAX package reads ``BGT_CACHE``;
-``full_pipeline`` keeps its FM-index cache under its run dir and writes
-discovery's counters to ``qc/discovery_stats.json``.  The JAX package's
-other subcommands wait for the modules they call; BAM/SAM, CRAM and QSEQ
-input waits for ``io/bam.py``, ``io/cram.py`` and ``io/qseq.py``, a BWA
-``.pac`` reference dir for ``io/pac.py``, and ``discovery --dist-dir`` for
+``coverage``, ``grm``, ``qual_classifier``, ``gt_classifier``,
+``full_pipeline``, the store subcommands ``query``, ``dump_flat``,
+``ref2seqset``, ``metadata``, ``export_fastq``, ``upgrade`` (a reference
+``.bg`` archive to ``.bgt``), ``export_aligned``, ``refhash`` and ``stats``
+take the JAX package's arguments and write the same artifacts and text,
+plus ``--device`` (default ``cuda``; the tests pass ``cpu``) wherever
+tensors are touched.  ``create`` reads FASTQ, BAM, SAM, CRAM (with
+``--ref``) and QSEQ; a reference may be a FASTA, a dir holding one or a
+BWA ``.pac`` index.  ``grm`` takes ``--cache-dir`` where the JAX package
+reads ``BGT_CACHE``; ``full_pipeline`` keeps its FM-index cache under its
+run dir and writes discovery's counters to ``qc/discovery_stats.json``.
+The tool subcommands (``squareoff``, ``pvcf_pipe``, ``vcf_sample_paste``,
+``freq_filter``, ``rvg_cleaner``, ``vcf_to_ml_table``, ``mendelian``,
+``vdb``) wait for the modules they call, and ``discovery --dist-dir`` for
 ``parallel/discovery.py``.
 
 Stage timings are read after the device has finished the stage.
@@ -31,7 +36,6 @@ import torch
 from biograph_tpu_torch import resolve_device, version
 
 BIOGRAPH_VERSION = "biograph_tpu_torch-0.1"
-_NOT_PORTED = ((".bam", "io/bam.py"), (".sam", "io/bam.py"), (".cram", "io/cram.py"), (".qseq", "io/qseq.py"))
 
 
 def _fence(dev):
@@ -39,12 +43,33 @@ def _fence(dev):
         torch.cuda.synchronize(dev)
 
 
-def _check_inputs(paths):
-    for p in paths:
-        stem = p.split(".gz")[0].split(".bz2")[0]
-        for suffix, module in _NOT_PORTED:
-            if stem.endswith(suffix):
-                raise NotImplementedError(f"{p}: {suffix[1:].upper()} input needs {module}, which is not ported yet")
+def _import_reads(args):
+    """create's input -> (ReadBatch, mate_of or None).  One BAM or SAM
+    file pairs its reads by name and FLAG, one CRAM (with --ref) too; one
+    QSEQ file, or FASTQ files, leave pairing to --paired."""
+    from biograph_tpu_torch.io.fastq import pad_batches, read_fastq
+
+    reads = args.reads
+    one = reads[0] if len(reads) == 1 else ""
+    if one.endswith((".bam", ".sam")):
+        from biograph_tpu_torch.io.bam import mate_pairs_from_names, read_bam, read_sam
+
+        batch, _ = read_bam(one, spill_dir=args.spill_dir) if one.endswith(".bam") else read_sam(one)
+        return batch, None if batch.names is None else mate_pairs_from_names(batch.names, batch.flags)
+    if one.endswith(".cram"):
+        from biograph_tpu_torch.io.bam import mate_pairs_from_names
+        from biograph_tpu_torch.io.cram import read_cram_batch
+
+        if not args.ref:
+            raise SystemExit("CRAM import needs --ref (reference-compressed)")
+        batch, hdr = read_cram_batch(one, _load_reference(args.ref))
+        return batch, mate_pairs_from_names(batch.names, hdr["flags"])
+    if one.split(".gz")[0].split(".bz2")[0].endswith(".qseq"):
+        from biograph_tpu_torch.io.qseq import read_qseq
+
+        return read_qseq(one), None
+    batches = [read_fastq(p, spill_dir=args.spill_dir) for p in reads]
+    return (batches[0] if len(batches) == 1 else pad_batches(batches)), None
 
 
 def cmd_create(args):
@@ -52,28 +77,25 @@ def cmd_create(args):
     (reference: bgbinary create, modules/biograph/biograph_create.cpp)"""
     from biograph_tpu_torch.build.readmap_build import build_readmap
     from biograph_tpu_torch.build.seqset_build import build_seqset
-    from biograph_tpu_torch.io.fastq import cut_reads, pad_batches, read_fastq, sample_mask, subset_batch
+    from biograph_tpu_torch.io.fastq import cut_reads, sample_mask, subset_batch
     from biograph_tpu_torch.kmers.count import count_kmers
     from biograph_tpu_torch.runtime.log import LOG, Progress
     from biograph_tpu_torch.runtime.resources import MemoryBudget
     from biograph_tpu_torch.tools.qc import write_kmer_quality_report
 
     dev = resolve_device(args.device)
-    _check_inputs(args.reads)
     t_start = time.time()
     timings = {}
     os.makedirs(os.path.join(args.out, "qc"), exist_ok=True)
     LOG.tee_to(os.path.join(args.out, "qc", "create_log.txt"))
     progress = Progress(label="create")
 
-    mate_of = None
     t0 = time.time()
-    batches = [read_fastq(p, spill_dir=args.spill_dir) for p in args.reads]
-    batch = batches[0] if len(batches) == 1 else pad_batches(batches)
+    batch, mate_of = _import_reads(args)
     timings["import"] = time.time() - t0
     LOG.info(f"import: {batch.num_reads} reads x <={batch.max_len}bp")
 
-    if args.paired:
+    if args.paired and mate_of is None:
         # interleaved pairing: read 2i <-> 2i+1 (reference read_importer
         # pair association, build_seqset/read_importer.h:43-48)
         R = batch.num_reads
@@ -194,7 +216,6 @@ def cmd_kmers(args):
     from biograph_tpu_torch.kmers.count import count_kmers
 
     dev = resolve_device(args.device)
-    _check_inputs([args.reads])
     batch = read_fastq(args.reads)
     kc = count_kmers(batch.codes, batch.lengths, k=args.kmer_size, device=dev)
     kc.write_text(args.out)
@@ -238,7 +259,8 @@ def _is_artifact(path):
 
 
 def _load_reference(path):
-    """A reference artifact dir, a dir holding a FASTA, or a FASTA file."""
+    """A reference artifact dir, a dir holding a FASTA or a BWA .pac index,
+    or a FASTA file."""
     from biograph_tpu_torch.index.reference import Reference
 
     if _is_artifact(path):
@@ -247,8 +269,8 @@ def _load_reference(path):
 
 
 def cmd_reference(args):
-    """FASTA (or a dir holding one) -> reference artifact.
-    (reference: bgbinary reference, modules/main/make_ref.cpp:21)"""
+    """FASTA (or a dir holding one, or a BWA .pac index) -> reference
+    artifact.  (reference: bgbinary reference, modules/main/make_ref.cpp:21)"""
     from biograph_tpu_torch.index.reference import Reference
 
     t0 = time.time()
@@ -609,6 +631,225 @@ def cmd_full_pipeline(args):
     print(f"full_pipeline: done -> {vcf['results']}")
 
 
+def cmd_query(args):
+    """Query a seqset for a DNA string: entry count + matching sequences.
+    (reference: bgbinary query, modules/biograph/biograph_query.cpp:56)"""
+    from biograph_tpu_torch.api import BioGraph
+
+    bg = BioGraph(args.biograph, device=args.device)
+    e = bg.find(args.query)
+    if not args.quiet:
+        print(f'Query: "{args.query}"')
+    if not e.valid:
+        if not args.quiet:
+            print("No valid results were found.")
+        return
+    count = e.end - e.begin
+    if not args.quiet:
+        print(f"Query has {e.size} bases.")
+        print(f"{count} seqset entries share this prefix.")
+    limit = count if args.verbose else min(count, 10)
+    ss = bg.seqset
+    for ent in range(e.begin, e.begin + limit):
+        print(ss.entry_sequence(ent))
+    if limit < count and not args.quiet:
+        print(f"... {count - limit} more (use --verbose)")
+
+
+def _entry_sequences(ss, entries, lengths):
+    """Yield (entry's sequence as text) for each entry, 2^14 a batch."""
+    from biograph_tpu_torch.core import dna
+
+    L = int(lengths.max(initial=0))
+    for lo in range(0, len(entries), 1 << 14):
+        hi = min(len(entries), lo + (1 << 14))
+        ids = torch.from_numpy(np.ascontiguousarray(entries[lo:hi], np.int64)).to(ss.device)
+        seqs = ss.d.sequences(ids, L).cpu().numpy()
+        for i in range(hi - lo):
+            yield dna.codes_to_seq(seqs[i, : int(lengths[lo + i])])
+
+
+def cmd_dump_flat(args):
+    """Dump every seqset entry's sequence, one per line, in entry order.
+    (reference: bgbinary dump_flat, modules/biograph/dump_biograph_flat.cpp:49)"""
+    import sys
+
+    from biograph_tpu_torch.api import BioGraph
+
+    bg = BioGraph(args.biograph, device=args.device)
+    ss = bg.seqset
+    sizes = ss.entry_sizes.cpu().numpy()
+    out = open(args.out, "w") if args.out else sys.stdout
+    for seq in _entry_sequences(ss, np.arange(ss.n_entries), sizes):
+        out.write(seq + "\n")
+    if args.out:
+        out.close()
+        print(f"dump_flat: {ss.n_entries} entries -> {args.out}")
+
+
+def cmd_ref2seqset(args):
+    """Build a seqset from the reference itself, cut into read-size tiles.
+    (reference: bgbinary ref2seqset, modules/biograph/ref_to_seqset.cpp:173:
+    non-overlapping read_size tiles; suffixes come from seqset expansion)"""
+    from biograph_tpu_torch.build.seqset_build import build_seqset
+    from biograph_tpu_torch.runtime.resources import MemoryBudget
+
+    dev = resolve_device(args.device)
+    rs = args.read_size
+    if not 30 <= rs <= 255:
+        raise SystemExit(f"--read-size must be in [30, 255], got {rs}")
+    ref = _load_reference(args.ref)
+    t0 = time.time()
+    flat, is_n = np.asarray(ref.flat), np.asarray(ref.is_n)
+    tiles = []
+    for c in ref.contigs:
+        for lo in range(c.start, c.start + c.length, rs):
+            hi = min(lo + rs, c.start + c.length)
+            if hi - lo >= 30 and not is_n[lo:hi].any():
+                tiles.append(flat[lo:hi])
+    if not tiles:
+        raise SystemExit("ref2seqset: no N-free tiles >= 30 bases")
+    lengths = np.array([len(t) for t in tiles], np.int32)
+    codes = np.zeros((len(tiles), rs), np.uint8)
+    for i, t in enumerate(tiles):
+        codes[i, : len(t)] = t
+    ss = build_seqset(codes, lengths, budget=MemoryBudget.detect(dev), device=dev)
+    os.makedirs(args.out, exist_ok=True)
+    ss.save(os.path.join(args.out, "seqset"))
+    with open(os.path.join(args.out, "metadata.json"), "w") as f:
+        json.dump(
+            {
+                "biograph_version": BIOGRAPH_VERSION,
+                "source": "ref2seqset",
+                "read_size": rs,
+                "num_reads": len(tiles),
+                "num_seqset_entries": int(ss.n_entries),
+                "accession_id": os.path.basename(args.out.rstrip("/")),
+            },
+            f,
+            indent=1,
+        )
+    print(f"ref2seqset: {len(tiles)} tiles x <={rs}bp -> {ss.n_entries} entries ({time.time()-t0:.1f}s) -> {args.out}")
+
+
+def cmd_metadata(args):
+    """Show (and optionally edit) a biograph dir's metadata.
+    (reference: bgbinary metadata, modules/biograph/biograph_info.cpp)"""
+    for path in args.biograph:
+        mpath = os.path.join(path, "metadata.json")
+        meta = {}
+        if os.path.isfile(mpath):
+            with open(mpath) as f:
+                meta = json.load(f)
+        changed = False
+        if args.set_sample_id is not None:
+            meta["sample_id"] = args.set_sample_id
+            changed = True
+        if args.set_accession_id is not None:
+            meta["accession_id"] = args.set_accession_id
+            changed = True
+        if changed:
+            with open(mpath, "w") as f:
+                json.dump(meta, f, indent=1)
+        size = 0
+        for root, _dirs, files in os.walk(path):
+            size += sum(os.path.getsize(os.path.join(root, fn)) for fn in files)
+        print(f"{path}: {size/1e6:.1f} MB")
+        print(json.dumps(meta, indent=1))
+
+
+def cmd_export_fastq(args):
+    """Reconstruct the forward reads from seqset+readmap -> FASTQ.
+    (reference: bgbinary export_fastq)"""
+    from biograph_tpu_torch.api import BioGraph
+
+    bg = BioGraph(args.biograph, device=args.device)
+    rm = bg.readmap
+    if rm is None:
+        raise SystemExit(f"{args.biograph}: no readmap")
+    fwd_ids = np.nonzero(rm.is_forward.cpu().numpy())[0]
+    entries = rm.entry_of_rm.cpu().numpy()[fwd_ids]
+    lens = rm.read_lengths.cpu().numpy()[fwd_ids]
+    read_ids = rm.read_ids.cpu().numpy()[fwd_ids]
+    n = 0
+    with open(args.out, "w") as f:
+        for i, s in enumerate(_entry_sequences(bg.seqset, entries, lens)):
+            f.write(f"@r{int(read_ids[i])}\n{s}\n+\n{'I' * len(s)}\n")
+            n += 1
+    print(f"export_fastq: {n} reads -> {args.out}")
+
+
+def cmd_upgrade(args):
+    """Convert a reference-format .bg archive to a .bgt dir.
+    (reference: bgbinary upgrade, modules/biograph/main.cpp command list)"""
+    from biograph_tpu_torch.io.bgimport import open_bg_dir
+
+    t0 = time.time()
+    ss, rm, meta = open_bg_dir(args.input, args.device)
+    os.makedirs(args.out, exist_ok=True)
+    ss.save(os.path.join(args.out, "seqset"))
+    if rm is not None:
+        rm.save(os.path.join(args.out, "readmap"))
+    with open(os.path.join(args.out, "metadata.json"), "w") as f:
+        json.dump(
+            {
+                "biograph_version": BIOGRAPH_VERSION,
+                "upgraded_from": os.path.abspath(args.input),
+                "accession_id": meta.get("accession_id", ""),
+                "num_seqset_entries": int(ss.n_entries),
+            },
+            f,
+            indent=1,
+        )
+    print(
+        f"upgrade: {ss.n_entries} entries"
+        + (f", {rm.read_count} reads" if rm else "")
+        + f" -> {args.out} ({time.time()-t0:.1f}s)"
+    )
+
+
+def cmd_export_aligned(args):
+    """Place the biograph's reads and export SAM/BAM over VCF regions
+    (reference: biograph export_aligned, tools/export_aligned.py)."""
+    from biograph_tpu_torch.api import BioGraph
+    from biograph_tpu_torch.tools.export_aligned import export_aligned
+
+    bg = BioGraph(args.biograph, device=args.device)
+    if bg.readmap is None:
+        raise SystemExit(f"{args.biograph}: no readmap")
+    ref = _load_reference(args.ref)
+    n = export_aligned(
+        bg,
+        ref,
+        args.out,
+        vcf_path=args.vcf,
+        window=args.window,
+        max_mismatches=args.max_mismatches,
+        include_unplaced=args.include_unplaced,
+        device=args.device,
+    )
+    print(f"export_aligned: {n} records -> {args.out}")
+
+
+def cmd_refhash(args):
+    """Reference fingerprint (reference: tools/refhash.py)."""
+    from biograph_tpu_torch.tools.qc import refhash
+
+    print(refhash(_load_reference(args.ref)))
+
+
+def cmd_stats(args):
+    """.bgt or .bg dir -> summary (reference: biograph stats)."""
+    from biograph_tpu_torch.api import BioGraph
+
+    bg = BioGraph(args.biograph, device=args.device)
+    print(json.dumps(bg.metadata, indent=1))
+    print(f"seqset entries: {bg.seqset.n_entries}")
+    if bg.readmap:
+        print(f"readmap entries: {bg.readmap.num_entries}")
+        print(json.dumps(bg.readmap.get_pair_stats(), indent=1))
+
+
 def _device_arg(p):
     p.add_argument("--device", default="cuda", help="torch device to run on (default cuda; cpu on the host)")
 
@@ -621,8 +862,8 @@ def main(argv=None):
     pver.set_defaults(fn=lambda a: print(f"biograph_tpu_torch version {version()}"))
 
     pc = sub.add_parser("create", help="reads -> seqset+readmap (.bgt)")
-    pc.add_argument("--reads", nargs="+", required=True, help="FASTQ(.gz) input")
-    pc.add_argument("--ref", help="reference (for CRAM input, which needs io/cram.py)")
+    pc.add_argument("--reads", nargs="+", required=True, help="FASTQ(.gz) / BAM / SAM / CRAM / QSEQ input")
+    pc.add_argument("--ref", help="reference (required for CRAM input)")
     pc.add_argument("--out", required=True)
     pc.add_argument("--kmer-size", type=int, default=23)
     pc.add_argument("--paired", action="store_true")
@@ -772,6 +1013,65 @@ def main(argv=None):
     pgt.add_argument("--sample", default="SAMPLE")
     _device_arg(pgt)
     pgt.set_defaults(fn=cmd_gt_classifier)
+
+    pqr = sub.add_parser("query", help="query a seqset for a DNA string")
+    pqr.add_argument("--biograph", required=True)
+    pqr.add_argument("--query", required=True)
+    pqr.add_argument("--verbose", action="store_true", help="print more than 10 matching entries")
+    pqr.add_argument("--quiet", action="store_true")
+    _device_arg(pqr)
+    pqr.set_defaults(fn=cmd_query)
+
+    pdf = sub.add_parser("dump_flat", help="dump all seqset entry sequences")
+    pdf.add_argument("--biograph", required=True)
+    pdf.add_argument("--out", help="output file (default stdout)")
+    _device_arg(pdf)
+    pdf.set_defaults(fn=cmd_dump_flat)
+
+    pr2s = sub.add_parser("ref2seqset", help="seqset from the reference itself")
+    pr2s.add_argument("--ref", required=True)
+    pr2s.add_argument("--out", required=True)
+    pr2s.add_argument("--read-size", type=int, default=100)
+    _device_arg(pr2s)
+    pr2s.set_defaults(fn=cmd_ref2seqset)
+
+    pmd = sub.add_parser("metadata", help="show/edit biograph dir metadata")
+    pmd.add_argument("biograph", nargs="+")
+    pmd.add_argument("--set-sample-id", default=None)
+    pmd.add_argument("--set-accession-id", default=None)
+    pmd.set_defaults(fn=cmd_metadata)
+
+    pe = sub.add_parser("export_fastq", help="reconstruct reads -> FASTQ")
+    pe.add_argument("--biograph", required=True)
+    pe.add_argument("--out", required=True)
+    _device_arg(pe)
+    pe.set_defaults(fn=cmd_export_fastq)
+
+    ps = sub.add_parser("stats", help="biograph dir stats")
+    ps.add_argument("biograph")
+    _device_arg(ps)
+    ps.set_defaults(fn=cmd_stats)
+
+    pu = sub.add_parser("upgrade", help="convert reference .bg to .bgt")
+    pu.add_argument("--in", dest="input", required=True)
+    pu.add_argument("--out", required=True)
+    _device_arg(pu)
+    pu.set_defaults(fn=cmd_upgrade)
+
+    pea = sub.add_parser("export_aligned", help="aligned reads -> SAM/BAM")
+    pea.add_argument("--biograph", required=True)
+    pea.add_argument("--ref", required=True)
+    pea.add_argument("--vcf", help="restrict to windows around these variants")
+    pea.add_argument("--out", required=True, help=".sam or .bam")
+    pea.add_argument("--window", type=int, default=400)
+    pea.add_argument("--max-mismatches", type=int, default=5)
+    pea.add_argument("--include-unplaced", action="store_true")
+    _device_arg(pea)
+    pea.set_defaults(fn=cmd_export_aligned)
+
+    ph = sub.add_parser("refhash", help="reference fingerprint")
+    ph.add_argument("--ref", required=True)
+    ph.set_defaults(fn=cmd_refhash)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -3,8 +3,8 @@
 Counterpart of ``biograph_tpu/index/reference.py``: a FASTA is flattened
 into one code array with contig extents and an N mask; ``save``/``load``
 write the same artifact as the JAX package's; ``make_range`` gives the
-SDK's ``ReferenceRange``.  Not ported yet: opening a BWA
-``.pac``/``.ann``/``.amb`` reference dir (it needs ``io/pac.py``).
+SDK's ``ReferenceRange``.  A reference dir holds a FASTA or a BWA
+``.pac``/``.ann``/``.amb`` index (``io/pac.py``).
 """
 
 from __future__ import annotations
@@ -53,14 +53,27 @@ class Reference:
 
     @staticmethod
     def from_reference_dir(path: str) -> "Reference":
-        """Open a reference directory that holds a FASTA."""
+        """Open a reference directory: prefers a FASTA; else BWA
+        .pac/.ann/.amb files, whose .amb holes become N (the reference
+        repo's bundled reference dirs ship only the latter)."""
         for fa in ("source.fasta", "reference.fasta", "genome.fa"):
             p = os.path.join(path, fa)
             if os.path.isfile(p):
                 return Reference.from_fasta(p)
-        raise FileNotFoundError(
-            f"no FASTA in {path} (BWA .pac reference dirs wait for io/pac.py)"
-        )
+        for stem in ("source.fasta", "reference.fasta"):
+            pac = os.path.join(path, stem + ".pac")
+            ann = os.path.join(path, stem + ".ann")
+            if os.path.isfile(pac) and os.path.isfile(ann):
+                from biograph_tpu_torch.io import pac as pacio
+
+                total_len, contig_list = pacio.read_ann(ann)
+                flat = pacio.read_pac(pac, total_len)
+                is_n = np.zeros(total_len, bool)
+                for off, length in pacio.read_amb(os.path.join(path, stem + ".amb")):
+                    is_n[off : off + length] = True
+                contigs = [Contig(name=n, start=o, length=l) for n, o, l in contig_list]
+                return Reference(flat=flat, is_n=is_n, contigs=contigs)
+        raise FileNotFoundError(f"no FASTA or BWA pac index in {path}")
 
     @property
     def total_bases(self) -> int:

@@ -34,6 +34,7 @@ class ReadBatch:
     lengths: np.ndarray  # int32 [R]
     quals: np.ndarray | None = None  # uint8 [R, Lmax] phred (0-padded), optional
     names: List[bytes] | None = None
+    flags: np.ndarray | None = None  # int32 [R] SAM FLAG (BAM, SAM and CRAM input)
 
     @property
     def num_reads(self) -> int:

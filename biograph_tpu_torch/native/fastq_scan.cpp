@@ -11,10 +11,11 @@
 //   lengths: int32 [max_reads]
 // Returns the number of reads parsed, or -1 on malformed input.
 //
-// The port's copy of biograph_tpu/native/fastq_scan.cpp, FASTQ half only:
-// the BAM/BGZF scanners (the part that needs zlib) belong with io/bam.py,
-// which is not ported yet, so this file links nothing beyond the C++
-// runtime.
+// The port's copy of biograph_tpu/native/fastq_scan.cpp: the FASTQ
+// scanner, the BAM record scanner and the BGZF block scan.  The blocks are
+// inflated by the caller (Python's zlib, which releases the GIL, over a
+// thread pool), so this file links nothing beyond the C++ runtime and needs
+// no zlib headers.
 
 #include <cstdint>
 #include <cstring>
@@ -151,6 +152,161 @@ void pack_codes_2bit(const uint8_t* codes, long long rows, long long len,
       wrow[w] = acc;
     }
   }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// BAM record scanner over a decompressed (post-BGZF) alignment section.
+//
+// Counterpart of the reference's htslib-driven per-record loop
+// (modules/build_seqset/read_importer.cpp bam path): emits 2-bit codes
+// (reverse-strand reads restored to original orientation), phred qualities
+// (a missing quality, 0xFF, becomes 0), lengths, flags and read-name
+// offsets.
+//
+// Layout contract (caller allocates after calling bam_dims):
+//   codes  : uint8 [max_reads, max_len]
+//   quals  : uint8 [max_reads, max_len]
+//   lengths: int32 [max_reads]
+//   flags  : int32 [max_reads]
+//   name_off: int64 [max_reads+1] offsets into name_buf
+//   name_buf: uint8 [total_name_bytes]
+// Skips secondary (0x100) and supplementary (0x800) records; keep_unmapped
+// selects flag-0x4 handling.
+
+namespace {
+inline int32_t rd_i32(const uint8_t* p) {
+  int32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+constexpr uint8_t kNib2Code[16] = {0, 0, 1, 0, 2, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0, 0};
+}  // namespace
+
+extern "C" {
+
+// First pass: count kept records, max read length, total name bytes.
+// buf points at the first alignment record (after header+refs).
+int bam_dims(const uint8_t* buf, long long n, int keep_unmapped,
+             long long* num_reads, long long* max_len,
+             long long* name_bytes) {
+  long long p = 0, r = 0, ml = 0, nb = 0;
+  while (p + 4 <= n) {
+    int32_t bs = rd_i32(buf + p);
+    if (bs < 32 || p + 4 + bs > n) break;
+    const uint8_t* rec = buf + p + 4;
+    p += 4 + bs;
+    uint8_t l_read_name = rec[8];
+    uint16_t flag;
+    memcpy(&flag, rec + 14, 2);
+    int32_t l_seq = rd_i32(rec + 16);
+    if ((flag & 0x100) || (flag & 0x800)) continue;
+    if (!keep_unmapped && (flag & 0x4)) continue;
+    r++;
+    if (l_seq > ml) ml = l_seq;
+    nb += l_read_name - 1;
+  }
+  *num_reads = r;
+  *max_len = ml;
+  *name_bytes = nb;
+  return 0;
+}
+
+long long bam_scan(const uint8_t* buf, long long n, int keep_unmapped,
+                   uint8_t* codes, uint8_t* quals, int32_t* lengths,
+                   int32_t* flags_out, long long* name_off, uint8_t* name_buf,
+                   long long max_reads, long long max_len) {
+  long long p = 0, r = 0, nb = 0;
+  name_off[0] = 0;
+  while (p + 4 <= n && r < max_reads) {
+    int32_t bs = rd_i32(buf + p);
+    if (bs < 32 || p + 4 + bs > n) break;
+    const uint8_t* rec = buf + p + 4;
+    p += 4 + bs;
+    uint8_t l_read_name = rec[8];
+    uint16_t n_cigar;
+    memcpy(&n_cigar, rec + 12, 2);
+    uint16_t flag;
+    memcpy(&flag, rec + 14, 2);
+    int32_t l_seq = rd_i32(rec + 16);
+    if ((flag & 0x100) || (flag & 0x800)) continue;
+    if (!keep_unmapped && (flag & 0x4)) continue;
+    const uint8_t* q = rec + 32;
+    memcpy(name_buf + nb, q, l_read_name - 1);
+    nb += l_read_name - 1;
+    q += l_read_name + 4 * n_cigar;
+    const uint8_t* seq_nib = q;
+    const uint8_t* qual = q + (l_seq + 1) / 2;
+    uint8_t* crow = codes + r * max_len;
+    uint8_t* qrow = quals + r * max_len;
+    if (flag & 0x10) {
+      // reverse strand: restore original orientation (revcomp, reverse qual)
+      for (int32_t i = 0; i < l_seq; i++) {
+        uint8_t nib = (i & 1) ? (seq_nib[i >> 1] & 0xF) : (seq_nib[i >> 1] >> 4);
+        crow[l_seq - 1 - i] = 3 - kNib2Code[nib];
+        qrow[l_seq - 1 - i] = qual[i] == 0xFF ? 0 : qual[i];
+      }
+    } else {
+      for (int32_t i = 0; i < l_seq; i++) {
+        uint8_t nib = (i & 1) ? (seq_nib[i >> 1] & 0xF) : (seq_nib[i >> 1] >> 4);
+        crow[i] = kNib2Code[nib];
+        qrow[i] = qual[i] == 0xFF ? 0 : qual[i];
+      }
+    }
+    memset(crow + l_seq, 0, (size_t)(max_len - l_seq));
+    memset(qrow + l_seq, 0, (size_t)(max_len - l_seq));
+    lengths[r] = l_seq;
+    flags_out[r] = flag;
+    r++;
+    name_off[r] = nb;
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// BGZF (blocked gzip, the BAM container layer): the block scan.  Every BGZF
+// member carries its compressed size in the 'BC' extra subfield and its
+// uncompressed size in ISIZE, so the blocks inflate independently (the
+// reference leans on htslib's multi-threaded bgzf reader, hts_set_threads).
+//
+// Writes per-block compressed offset/size and uncompressed size.  Returns
+// the block count; -1 if a member is not BGZF (no BC subfield), which the
+// caller reads with the serial streaming walk.
+long long bgzf_scan(const uint8_t* buf, long long n, long long* c_off,
+                    int32_t* c_size, int32_t* u_size, long long max_blocks) {
+  long long p = 0, k = 0;
+  while (p + 18 <= n && k < max_blocks) {
+    if (buf[p] != 0x1f || buf[p + 1] != 0x8b) break;
+    if (buf[p + 2] != 8 || !(buf[p + 3] & 4)) return -1;  // no FEXTRA
+    uint16_t xlen;
+    memcpy(&xlen, buf + p + 10, 2);
+    long long xend = p + 12 + xlen;
+    if (xend > n) return -1;
+    long long q = p + 12;
+    long long bsize = -1;
+    while (q + 4 <= xend) {
+      uint8_t si1 = buf[q], si2 = buf[q + 1];
+      uint16_t slen;
+      memcpy(&slen, buf + q + 2, 2);
+      if (si1 == 'B' && si2 == 'C' && slen == 2) {
+        uint16_t bs16;
+        memcpy(&bs16, buf + q + 4, 2);
+        bsize = (long long)bs16 + 1;
+        break;
+      }
+      q += 4 + slen;
+    }
+    if (bsize < 0 || p + bsize > n) return -1;
+    uint32_t isize;
+    memcpy(&isize, buf + p + bsize - 4, 4);
+    c_off[k] = p;
+    c_size[k] = (int32_t)bsize;
+    u_size[k] = (int32_t)isize;
+    k++;
+    p += bsize;
+  }
+  return k;
 }
 
 }  // extern "C"

@@ -105,6 +105,26 @@ its first two blocks of steps under torch.profiler.  The FM-index of the genome 
 built on the card and on the CPU, equal to each other and to the file's
 digests, and 65 536 substrings and 4096 random 40-mers are found and
 located on both.  The planted SVs' recall by class is printed, not gated.
+Leg 5 (``formats``) is every read and archive format the product reads.
+(a) Leg 3's 240 000 reads, placed on the genome by ``place_reads`` as an
+aligner would (a reverse-strand read stored reverse-complemented, unplaced
+reads and every 29th read unmapped, a secondary and a supplementary copy of
+every 50th), written with the port's ``write_bam`` and read back (the BGZF
+blocks inflated on a thread pool and by the serial walk, equal), go through
+``create --paired --correct`` on the card, whose store must equal the JAX
+CPU leg's file (``tests/data/torch_create_leg.json``).  (b) The first
+20 000 pairs of those records as CRAM (raw, gzip and rANS blocks, written
+by this script's own minimal CRAM writer) and as BAM give equal stores
+through ``create``.  (c) Leg 3's store written as the reference's ``.bg``
+archive (this script's spiral_file writer, packed_varbit fields) opens with
+``BioGraph`` on the card in one ``rank_cum`` launch, ``upgrade`` gives leg
+3's ``.bgt`` (but the read ids a ``.bg`` lacks), and 65 536 seeded finds
+are equal on the ``.bg`` store and the ``.bgt``.  (d) ``export_aligned``
+over the trimmed library's truth VCF on the card, read back; over a region
+on the card and on a CPU copy, equal record for record.  (e) ``query``,
+``stats`` and ``export_fastq`` on the card against the CPU.  The build's
+and the importer's ``rank_cum`` and find's ``rank`` calls are kept, first
+and widest, and held against their plain versions.
 Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
@@ -120,7 +140,7 @@ time and its heaviest kernels go to OUT.json; the ``kernels`` and
 ``rank_past_l2`` lines then also split a ``rank4_tiled`` call into its
 kernels.  The ``kernels`` line's ``launches_*`` columns are each kernel's
 launches in each leg's counted run (``launches_pipeline``: leg 4's cold
-``full_pipeline``).
+``full_pipeline``; ``launches_formats``: the whole of leg 5).
 """
 
 from __future__ import annotations
@@ -131,6 +151,7 @@ import importlib
 import inspect
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2633,13 +2654,31 @@ class _Kept:
 
 
 @contextlib.contextmanager
+def kept_calls(sites, stage):
+    """While the block runs, each kernel of ``sites`` (a dict shaped as
+    PIPELINE_CALL_SITES) keeps its first and widest call under the stage
+    ``stage[0]`` names (``_Kept``): yields {(stage, kernel): {"calls": n,
+    "first": call, "widest": call}}."""
+    kept, saved = {}, []
+    try:
+        for name, (module, attr, _, tables, lanes_at) in sites.items():
+            m = importlib.import_module(module)
+            saved.append((m, attr, getattr(m, attr)))
+            setattr(m, attr, _Kept(name, getattr(m, attr), tables, lanes_at, stage, kept))
+        yield kept
+    finally:
+        for m, attr, fn in reversed(saved):
+            setattr(m, attr, fn)
+
+
+@contextlib.contextmanager
 def kept_pipeline_calls():
     """While the block runs, each kernel of PIPELINE_CALL_SITES keeps its
-    calls by the stage of the full_pipeline run that made them (``_Kept``):
-    yields {(stage, kernel): {"calls": n, "first": call, "widest": call}}."""
+    calls by the stage of the full_pipeline run that made them
+    (``kept_calls``)."""
     from biograph_tpu_torch.runtime import stages as stages_mod
 
-    kept, stage = {}, [None]
+    stage = [None]
     real_run = stages_mod.StageRunner.run
 
     def run(self, stage_list, *args, **kw):
@@ -2655,35 +2694,34 @@ def kept_pipeline_calls():
 
         return real_run(self, [tagged(s) for s in stage_list], *args, **kw)
 
-    saved = []
     try:
         stages_mod.StageRunner.run = run
-        for name, (module, attr, _, tables, lanes_at) in PIPELINE_CALL_SITES.items():
-            m = importlib.import_module(module)
-            saved.append((m, attr, getattr(m, attr)))
-            setattr(m, attr, _Kept(name, getattr(m, attr), tables, lanes_at, stage, kept))
-        yield kept
+        with kept_calls(PIPELINE_CALL_SITES, stage) as kept:
+            yield kept
     finally:
         stages_mod.StageRunner.run = real_run
-        for m, attr, fn in saved:
-            setattr(m, attr, fn)
+
+
+def hold_calls(kept, sites, where):
+    """Every kept call against its kernel's plain version (``sites``) on
+    the same inputs: {stage: {kernel: {calls, first_lanes, widest_lanes}}}."""
+    out = {}
+    for (stage, name), calls in sorted(kept.items(), key=str):
+        plain = sites[name][2]
+        for which in ("first", "widest"):
+            lanes, args, got = calls[which]
+            require_equal(f"{name} in {where} {stage} stage, {which} call ({lanes} lanes)", got, plain(*args))
+        out.setdefault(stage, {})[name] = {"calls": calls["calls"], "first_lanes": calls["first"][0], "widest_lanes": calls["widest"][0]}
+    return out
 
 
 def hold_kept_calls(kept):
-    """Every kept call against its kernel's plain version on the same
-    inputs, and every stage's kernels of PIPELINE_HOLDS reached: {stage:
-    {kernel: {calls, first_lanes, widest_lanes}}}."""
+    """``hold_calls`` over leg 4's kept calls, every stage's kernels of
+    PIPELINE_HOLDS reached."""
     missing = [(s, k) for s, names in PIPELINE_HOLDS.items() for k in names if (s, k) not in kept]
     if missing:
         raise AssertionError(f"pipeline_sv: the cold run's stages never called {missing}")
-    out = {}
-    for (stage, name), calls in sorted(kept.items(), key=str):
-        plain = PIPELINE_CALL_SITES[name][2]
-        for which in ("first", "widest"):
-            lanes, args, got = calls[which]
-            require_equal(f"{name} in the pipeline's {stage} stage, {which} call ({lanes} lanes)", got, plain(*args))
-        out.setdefault(stage, {})[name] = {"calls": calls["calls"], "first_lanes": calls["first"][0], "widest_lanes": calls["widest"][0]}
-    return out
+    return hold_calls(kept, PIPELINE_CALL_SITES, "the pipeline's")
 
 
 def leg_genome(genome_len=GENOME):
@@ -3133,6 +3171,746 @@ def bwt_checks(dev, genome, want):
             "locate_s": locate_s, "queries": BWT_QUERIES, "absent_queries": BWT_ABSENT, "absent_found": absent}
 
 
+# ---------------------------------------------------------------------------
+# Fixture writers of leg 5 (and of the tests, which import them from here):
+# the reference's .bg archive (spiral_file: stored ZIP members) and a
+# minimal CRAM 3.0 file.  Neither belongs in the package, which only reads.
+# ---------------------------------------------------------------------------
+
+
+def stored_zip(members) -> bytes:
+    """A ZIP of stored (uncompressed) members, [(name, bytes)] in order."""
+    import struct
+    import zlib
+
+    local, central, off = bytearray(), bytearray(), 0
+    for name, data in members:
+        nb, crc = name.encode(), zlib.crc32(data)
+        head = struct.pack("<4sHHHHHIIIHH", b"PK\x03\x04", 20, 0, 0, 0, 0, crc, len(data), len(data), len(nb), 0)
+        central += struct.pack(
+            "<4sHHHHHHIIIHHHHHII", b"PK\x01\x02", 20, 20, 0, 0, 0, 0, crc, len(data), len(data), len(nb), 0, 0, 0, 0, 0, off
+        ) + nb
+        local += head + nb + data
+        off += len(head) + len(nb) + len(data)
+    end = struct.pack("<4sHHHHIIH", b"PK\x05\x06", 0, 0, len(members), len(members), len(central), off, 0)
+    return bytes(local + central + end)
+
+
+def pack_varbit(values, bits: int, chunk: int = 1 << 20) -> bytes:
+    """packed_varbit_vector elements: value i at bits [i*bits, (i+1)*bits),
+    little-endian across bytes, a chunk of values at a time."""
+    v = np.asarray(values).astype(np.uint64)
+    if len(v) and int(v.max()) >> bits:
+        raise ValueError(f"a value needs more than {bits} bits")
+    shifts = np.arange(bits, dtype=np.uint64)
+    out = [
+        np.packbits(((v[lo : lo + chunk, None] >> shifts) & np.uint64(1)).astype(np.uint8).reshape(-1), bitorder="little")
+        for lo in range(0, len(v), chunk)
+    ]
+    return b"".join(a.tobytes() for a in out)
+
+
+def _bits_member(bits_bool) -> bytes:
+    """A bitcount's bits: uint64 words, bit i = word[i/64] >> (i&63)."""
+    n = len(bits_bool)
+    padded = np.zeros(-(-max(n, 1) // 64) * 64, np.uint8)
+    padded[:n] = bits_bool
+    return np.packbits(padded, bitorder="little").tobytes()
+
+
+def _int_members(name, values, bits):
+    """One integer field: a uint8 membuf (bits None, the v1.0 form) or a
+    packed_varbit subpart (v1.1)."""
+    if bits is None:
+        if len(values) and (int(np.max(values)) > 255 or int(np.min(values)) < 0):
+            raise ValueError(f"{name}: a uint8 membuf holds 0-255")
+        return [(name, np.asarray(values, np.uint8).tobytes())]
+    meta = json.dumps({"element_count": int(len(values)), "bits_per_value": int(bits)}).encode()
+    return [(f"{name}/packed_varbit_vector.json", meta), (f"{name}/elements", pack_varbit(values, bits))]
+
+
+def bg_seqset_bytes(ss, bits=None) -> bytes:
+    """A seqset (numpy fields as the JAX package's, or ``seqset_to_numpy``
+    gives the port's) as the reference's spiral_file.  ``bits``: None for
+    the v1.0 form (uint8 membufs), else {"entry_sizes": w, "shared": w}."""
+    n = int(ss["n_entries"])
+    words = np.asarray(ss["prev_words"], np.uint32)
+    members = [
+        ("seqset.json", json.dumps({"num_entries": n, "version": "1.0" if bits is None else "1.1"}).encode()),
+        ("fixed", np.asarray(ss["fixed"], np.uint64).tobytes()),  # all five bounds: the importers index fixed[4]
+    ]
+    for name in ("entry_sizes", "shared"):
+        members += _int_members(name, np.asarray(ss[name]), None if bits is None else bits[name])
+    for bi, base in enumerate("ACGT"):
+        set_bits = np.unpackbits(words[bi].view(np.uint8), bitorder="little")[:n]
+        members += [(f"prev_{base}/bitcount.json", json.dumps({"nbits": n}).encode()), (f"prev_{base}/bits", _bits_member(set_bits))]
+    return stored_zip(members)
+
+
+def bg_readmap_bytes(rm, bits=None) -> bytes:
+    """A readmap (numpy ``offsets``, ``read_lengths``, ``is_forward``,
+    ``mate_pair_ptr``) as the reference's spiral_file: the entry -> reads
+    map as a sparse_multi.  ``bits``: None for the v1.0 form (read_lengths a
+    uint8 membuf, mate_loop_ptr a 32-bit packed_vector), else
+    {"read_lengths": w, "mate_loop_ptr": w}."""
+    offsets = np.asarray(rm["offsets"], np.int64)
+    counts = np.diff(offsets)
+    n_src, n_dest = len(counts), int(offsets[-1])
+    dest_first = np.zeros(n_dest, bool)
+    dest_first[offsets[:-1][counts > 0]] = True
+    members = []
+    for part, set_bits in (("source_to_mid", counts > 0), ("dest_to_mid", dest_first)):
+        members += [
+            (f"read_ids/{part}/bitcount.json", json.dumps({"nbits": len(set_bits)}).encode()),
+            (f"read_ids/{part}/bits", _bits_member(set_bits)),
+        ]
+    members += _int_members("read_lengths", np.asarray(rm["read_lengths"]), None if bits is None else bits["read_lengths"])
+    mate = np.asarray(rm["mate_pair_ptr"], np.int64)
+    if bits is None:
+        members += [("mate_loop_ptr/packed_vector.json", b'{"value_width_bits": 32}'), ("mate_loop_ptr/packed_data", mate.astype(np.uint32).tobytes())]
+    else:
+        members += _int_members("mate_loop_ptr", mate, bits["mate_loop_ptr"])
+    fwd = np.packbits(np.asarray(rm["is_forward"], np.uint8), bitorder="little").tobytes()
+    members += [("is_forward/packed_vector.json", b'{"value_width_bits": 1}'), ("is_forward/packed_data", fwd)]
+    assert n_src == len(counts) and n_dest == len(rm["read_lengths"])
+    return stored_zip(members)
+
+
+def write_bg_dir(path, ss, rm=None, bits=None, meta=None):
+    """A reference .bg dir: ``seqset``, ``coverage/sample.readmap`` and
+    ``metadata/bg_info.json``.  ``bits`` picks the v1.1 widths of the four
+    integer fields (keys of both writers), None the v1.0 form."""
+    os.makedirs(os.path.join(path, "metadata"), exist_ok=True)
+    with open(os.path.join(path, "seqset"), "wb") as f:
+        f.write(bg_seqset_bytes(ss, bits))
+    if rm is not None:
+        os.makedirs(os.path.join(path, "coverage"), exist_ok=True)
+        with open(os.path.join(path, "coverage", "sample.readmap"), "wb") as f:
+            f.write(bg_readmap_bytes(rm, bits))
+    with open(os.path.join(path, "metadata", "bg_info.json"), "w") as f:
+        json.dump(meta or {"accession_id": os.path.basename(path.rstrip("/"))}, f)
+    return path
+
+
+def least_bits(values) -> int:
+    return max(int(np.max(values, initial=0)).bit_length(), 1)
+
+
+# -- CRAM 3.0: varints, rANS 4x8, blocks, containers ------------------------
+
+
+def itf8(v: int) -> bytes:
+    """ITF8 of a 32-bit value (negative values as two's complement)."""
+    v &= 0xFFFFFFFF
+    if v < 0x80:
+        return bytes([v])
+    if v < 0x4000:
+        return bytes([0x80 | v >> 8, v & 0xFF])
+    if v < 0x200000:
+        return bytes([0xC0 | v >> 16, v >> 8 & 0xFF, v & 0xFF])
+    if v < 0x10000000:
+        return bytes([0xE0 | v >> 24, v >> 16 & 0xFF, v >> 8 & 0xFF, v & 0xFF])
+    return bytes([0xF0 | v >> 28, v >> 20 & 0xFF, v >> 12 & 0xFF, v >> 4 & 0xFF, v & 0x0F])
+
+
+def ltf8(v: int) -> bytes:
+    """LTF8 of a 64-bit value: n leading 1 bits, then n bytes big-endian."""
+    v &= (1 << 64) - 1
+    for n in range(8):
+        if v < 1 << (7 + 7 * n):
+            return bytes([(0xFF00 >> n & 0xFF) | v >> 8 * n]) + (v & ((1 << 8 * n) - 1)).to_bytes(n, "big")
+    return b"\xff" + v.to_bytes(8, "big")
+
+
+RANS_TOTAL = 4096
+RANS_LOW = 1 << 23
+
+
+def _rans_normalise(counts):
+    """Frequencies summing to RANS_TOTAL, at least 1 for every symbol seen."""
+    total = int(sum(counts))
+    F = [0] * 256
+    for s, c in enumerate(counts):
+        if c:
+            F[s] = max(1, c * RANS_TOTAL // total)
+    top = max(range(256), key=lambda s: F[s])
+    F[top] += RANS_TOTAL - sum(F)
+    if F[top] < 1:
+        raise ValueError("rANS: cannot normalise the frequencies")
+    return F
+
+
+def _rans_rle(present, write_one):
+    """The run-length layout of a rANS table (symbols, or contexts of order
+    1): a symbol byte, then a run count after a symbol that follows a
+    present one; each entry's payload by write_one; a closing 0."""
+    out, rle = bytearray(), 0
+    for s in range(256):
+        if not present[s]:
+            continue
+        if rle:
+            rle -= 1
+        else:
+            out.append(s)
+            if s and present[s - 1]:
+                rle = 0
+                while s + 1 + rle < 256 and present[s + 1 + rle]:
+                    rle += 1
+                out.append(rle)
+        out += write_one(s)
+    out.append(0)
+    return bytes(out)
+
+
+def _rans_freq_bytes(F) -> bytes:
+    def one(s):
+        f = F[s]
+        return bytes([f]) if f < 128 else bytes([0x80 | f >> 8, f & 0xFF])
+
+    return _rans_rle([f > 0 for f in F], one)
+
+
+def rans_encode(data: bytes, order: int) -> bytes:
+    """rANS 4x8 (htslib rans_static layout) of order 0 or 1.  A byte of
+    255 is refused: the decoders read a table with symbol 255 wrong."""
+    if 255 in data or not data:
+        raise ValueError("rans_encode: data must be non-empty and hold no byte 255")
+    n = len(data)
+    # (stream, context, symbol) in decoding order, then encoded backwards
+    if order == 0:
+        steps = [(i & 3, 0, data[i]) for i in range(n)]
+    else:
+        q = n >> 2
+        steps = [(j, data[j * q + k - 1] if k else 0, data[j * q + k]) for k in range(q) for j in range(4)]
+        steps += [(3, data[i - 1] if i else 0, data[i]) for i in range(4 * q, n)]
+    counts = {}
+    for _, ctx, s in steps:
+        counts.setdefault(ctx, [0] * 256)[s] += 1
+    F = {ctx: _rans_normalise(c) for ctx, c in counts.items()}
+    C = {ctx: [sum(f[:s]) for s in range(256)] for ctx, f in F.items()}
+    if order == 0:
+        table = _rans_freq_bytes(F[0])
+    else:
+        table = _rans_rle([ctx in F for ctx in range(256)], lambda ctx: _rans_freq_bytes(F[ctx]))
+    R = [RANS_LOW] * 4
+    emitted = bytearray()
+    for j, ctx, s in reversed(steps):
+        f, x = F[ctx][s], R[j]
+        x_max = ((RANS_LOW >> 12) << 8) * f
+        while x >= x_max:
+            emitted.append(x & 0xFF)
+            x >>= 8
+        R[j] = (x // f << 12) + x % f + C[ctx][s]
+    body = table + struct.pack("<4I", *R) + bytes(reversed(emitted))
+    return bytes([order]) + struct.pack("<ii", len(body), n) + body
+
+
+CRAM_METHODS = {"raw": 0, "gzip": 1, "rans0": 4, "rans1": 4}
+CT_HEADER, CT_COMPRESSION, CT_SLICE, CT_EXTERNAL, CT_CORE = 0, 1, 2, 4, 5
+
+
+def cram_block(ctype: int, cid: int, raw: bytes, method: str = "raw") -> bytes:
+    import gzip
+    import zlib
+
+    if method == "raw":
+        data = raw
+    elif method == "gzip":
+        data = gzip.compress(raw, mtime=0)
+    elif method in ("rans0", "rans1"):
+        data = rans_encode(raw, int(method[-1]))
+    else:
+        raise ValueError(method)
+    head = bytes([CRAM_METHODS[method], ctype]) + itf8(cid) + itf8(len(data)) + itf8(len(raw))
+    return head + data + struct.pack("<I", zlib.crc32(head + data))
+
+
+def cram_container(ref_id, start, span, n_rec, counter, n_bases, blocks, landmarks) -> bytes:
+    import zlib
+
+    body = b"".join(blocks)
+    head = struct.pack("<i", len(body)) + itf8(ref_id) + itf8(start) + itf8(span) + itf8(n_rec)
+    head += ltf8(counter) + ltf8(n_bases) + itf8(len(blocks)) + itf8(len(landmarks)) + b"".join(itf8(x) for x in landmarks)
+    return head + struct.pack("<I", zlib.crc32(head)) + body
+
+
+# the series of the records this writer makes: name -> (codec, external block id)
+_CRAM_INT_SERIES = {"BF": 1, "CF": 2, "RI": 3, "RL": 4, "AP": 5, "MF": 7, "NS": 8, "NP": 9, "TS": 10, "TL": 11,
+                    "FN": 12, "FP": 14, "DL": 17, "MQ": 21}
+_CRAM_BYTE_SERIES = {"FC": 13, "BS": 15, "BA": 22, "QS": 23}
+CRAM_RN, CRAM_IN, CRAM_SC_LEN, CRAM_SC, CRAM_TAG = 6, 16, 18, 19, 20
+_SUB_LETTERS = {"A": "CGTN", "C": "AGTN", "G": "ACTN", "T": "ACGN"}
+CRAM_TAG_KEY = (ord("R") << 16) | (ord("G") << 8) | ord("Z")
+
+
+def _cram_compression_header(ap_delta: bool) -> bytes:
+    def counted(entries: bytes, n: int) -> bytes:
+        inner = itf8(n) + entries
+        return itf8(len(inner)) + inner
+
+    td = b"\x00RGZ"  # two tag lines: none, and RG:Z
+    pres = b"RN" + bytes([1]) + b"AP" + bytes([int(ap_delta)]) + b"RR" + bytes([1]) + b"SM" + b"\x1b" * 5
+    pres += b"TD" + itf8(len(td)) + td
+    series = []
+
+    def enc(key, codec, params):
+        series.append(key.encode() + itf8(codec) + itf8(len(params)) + params)
+
+    for key, cid in {**_CRAM_INT_SERIES, **_CRAM_BYTE_SERIES}.items():
+        enc(key, 1, itf8(cid))  # EXTERNAL
+    enc("RG", 3, itf8(1) + itf8(-1) + itf8(1) + itf8(0))  # constant HUFFMAN: every record in no read group
+    enc("RN", 5, b"\x00" + itf8(CRAM_RN))  # BYTE_ARRAY_STOP
+    enc("IN", 5, b"\x00" + itf8(CRAM_IN))
+    sc_len, sc_val = itf8(1) + itf8(len(itf8(CRAM_SC_LEN))) + itf8(CRAM_SC_LEN), itf8(1) + itf8(len(itf8(CRAM_SC))) + itf8(CRAM_SC)
+    enc("SC", 4, sc_len + sc_val)  # BYTE_ARRAY_LEN over two EXTERNAL blocks
+    tag = itf8(CRAM_TAG_KEY) + itf8(5) + itf8(2) + b"\x00" + itf8(CRAM_TAG)
+    return counted(pres, 5) + counted(b"".join(series), len(series)) + counted(tag, 1)
+
+
+def _cram_features(rec, ref_seq: str):
+    """(code, read position 1-based, payload) of a mapped record, from its
+    CIGAR (M, I, D, S) against the reference: a substitution a mismatch."""
+    feats, rpos, gpos = [], 0, rec.pos - 1
+    for n, op in rec.cigar:
+        if op == "M":
+            for k in range(n):
+                base, ref = rec.seq[rpos + k], ref_seq[gpos + k]
+                if base != ref:
+                    feats.append(("X", rpos + k + 1, _SUB_LETTERS[ref].index(base)))
+            rpos, gpos = rpos + n, gpos + n
+        elif op == "I":
+            feats.append(("I", rpos + 1, rec.seq[rpos : rpos + n].encode()))
+            rpos += n
+        elif op == "D":
+            feats.append(("D", rpos + 1, n))
+            gpos += n
+        elif op == "S":
+            feats.append(("S", rpos + 1, rec.seq[rpos : rpos + n].encode()))
+            rpos += n
+        else:
+            raise ValueError(f"CIGAR op {op} is not written")
+    return feats
+
+
+def _cram_slice(records, ref_ids, ref_seqs, multi_ref, ap_delta, methods, tag_every):
+    """(slice header block, its data blocks, slice start, span, bases)."""
+    streams = {cid: bytearray() for cid in (*_CRAM_INT_SERIES.values(), *_CRAM_BYTE_SERIES.values(),
+                                           CRAM_RN, CRAM_IN, CRAM_SC_LEN, CRAM_SC, CRAM_TAG)}
+    refs_here = {ref_ids.get(r.rname, -1) for r in records}
+    slice_ref = -2 if multi_ref else (refs_here.pop() if len(refs_here) == 1 else -2)
+    mapped_pos = [r.pos for r in records if not r.flag & 4]
+    start = min(mapped_pos) if slice_ref >= 0 and mapped_pos else 0
+    end = max((r.pos + sum(n for n, op in r.cigar if op in "MD") for r in records if not r.flag & 4), default=start)
+    last = start
+    for i, r in enumerate(records):
+        def put(key, v):
+            streams[_CRAM_INT_SERIES[key]] += itf8(v)
+
+        def put_byte(key, v):
+            streams[_CRAM_BYTE_SERIES[key]].append(v)
+
+        rid = ref_ids.get(r.rname, -1)
+        has_qual = r.qual != "*"
+        put("BF", r.flag)
+        put("CF", (1 if has_qual else 0) | 2)  # every mate detached
+        if slice_ref == -2:
+            put("RI", rid)
+        put("RL", len(r.seq))
+        pos = r.pos if not r.flag & 4 or rid >= 0 else 0
+        put("AP", pos - last if ap_delta else pos)
+        last = pos if ap_delta else last
+        streams[CRAM_RN] += r.qname.encode() + b"\x00"
+        put("MF", 0)
+        put("NS", ref_ids.get(r.rnext if r.rnext != "=" else r.rname, -1))
+        put("NP", r.pnext)
+        put("TS", r.tlen)
+        tl = 1 if tag_every and i % tag_every == 0 else 0
+        put("TL", tl)
+        if tl:
+            streams[CRAM_TAG] += b"grp%d\x00" % i
+        if not r.flag & 4:
+            feats = _cram_features(r, ref_seqs[r.rname])
+            put("FN", len(feats))
+            prev = 0
+            for code, fpos, payload in feats:
+                put_byte("FC", ord(code))
+                put("FP", fpos - prev)
+                prev = fpos
+                if code == "X":
+                    put_byte("BS", payload)
+                elif code == "I":
+                    streams[CRAM_IN] += payload + b"\x00"
+                elif code == "D":
+                    put("DL", payload)
+                else:  # S: BYTE_ARRAY_LEN
+                    streams[CRAM_SC_LEN] += itf8(len(payload))
+                    streams[CRAM_SC] += payload
+            put("MQ", r.mapq)
+        else:
+            streams[_CRAM_BYTE_SERIES["BA"]] += r.seq.encode()
+        if has_qual:
+            streams[_CRAM_BYTE_SERIES["QS"]] += bytes(ord(c) - 33 for c in r.qual)
+    cids = [cid for cid, data in streams.items() if data]
+    blocks = [cram_block(CT_CORE, 0, b"")]
+    blocks += [cram_block(CT_EXTERNAL, cid, bytes(streams[cid]), methods.get(cid, "raw")) for cid in cids]
+    n_bases = sum(len(r.seq) for r in records)
+    head = itf8(slice_ref) + itf8(start) + itf8(max(end - start, 0)) + itf8(len(records)) + ltf8(0)
+    head += itf8(len(blocks)) + itf8(len(cids) + 1) + itf8(0) + b"".join(itf8(c) for c in cids) + itf8(-1) + b"\x00" * 16
+    return cram_block(CT_SLICE, 0, head), blocks, start, end - start, n_bases, slice_ref
+
+
+def write_cram(path, refs, ref_seqs, records, slice_records=64, container_slices=2, methods=None,
+               ap_delta=(True, False), multi_ref_every=3, tag_every=5):
+    """A CRAM 3.0 file of ``records`` (``io/bamwrite.SamRecord``: seq in
+    reference orientation, CIGAR of M, I, D and S, qual "*" for none)
+    compressed against ``ref_seqs`` ({contig: ASCII}); ``refs`` [(name,
+    length)] makes the @SQ lines.  Records go ``slice_records`` a slice and
+    ``container_slices`` slices a container; ``methods`` maps an external
+    block id to "raw", "gzip", "rans0" or "rans1" (raw by default);
+    containers alternate ``ap_delta`` (positions as deltas, or absolute);
+    every ``multi_ref_every``-th slice is multi-reference (RI series); every
+    ``tag_every``-th record carries an RG:Z tag.  Returns the number of
+    records."""
+    methods = methods or {}
+    ref_ids = {name: i for i, (name, _) in enumerate(refs)}
+    text = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(f"@SQ\tSN:{n}\tLN:{ln}\n" for n, ln in refs)
+    out = bytearray(b"CRAM\x03\x00" + b"biograph_fixture".ljust(20, b"\x00"))
+    hb = text.encode()
+    head_block = cram_block(CT_HEADER, 0, struct.pack("<i", len(hb)) + hb)
+    out += cram_container(0, 0, 0, 0, 0, 0, [head_block], [0])
+    counter, slice_no = 0, 0
+    per_container = slice_records * container_slices
+    for ci, lo in enumerate(range(0, len(records), per_container)):
+        chunk = records[lo : lo + per_container]
+        delta = ap_delta[ci % len(ap_delta)]
+        blocks = [cram_block(CT_COMPRESSION, 0, _cram_compression_header(delta))]
+        landmarks, slice_refs, spans, n_bases = [], set(), [], 0
+        for so in range(0, len(chunk), slice_records):
+            multi = bool(multi_ref_every) and slice_no % multi_ref_every == multi_ref_every - 1
+            sh, data, start, span, bases, sref = _cram_slice(chunk[so : so + slice_records], ref_ids, ref_seqs, multi,
+                                                             delta, methods, tag_every)
+            slice_no += 1
+            landmarks.append(sum(len(b) for b in blocks))
+            blocks += [sh, *data]
+            slice_refs.add(sref)
+            spans.append((start, start + span))
+            n_bases += bases
+        cref = slice_refs.pop() if len(slice_refs) == 1 else -2
+        cstart = min(s for s, _ in spans) if cref >= 0 else 0
+        cend = max(e for _, e in spans) if cref >= 0 else 0
+        out += cram_container(cref, cstart, cend - cstart, len(chunk), counter, n_bases, blocks, landmarks)
+        counter += len(chunk)
+    out += bytes.fromhex("0f000000ffffffff0fe0454f4600000000010005bdd94f0001000606010001000100ee63014b")
+    with open(path, "wb") as f:
+        f.write(out)
+    return len(records)
+
+
+# -- leg 5: the formats ------------------------------------------------------
+
+CRAM_PAIRS = 20_000  # part (b): the first pairs of leg 3, as CRAM and as BAM
+BG_QUERIES = 1 << 16  # part (c): seeded finds on the .bg store and the .bgt
+EXPORT_REGION = (0, 100_000)  # part (d): the truth VCF's records here, card against a CPU copy
+UNMAPPED_EVERY = 29  # part (a): a read an aligner left unmapped, besides those place_reads cannot place
+EXTRA_EVERY = 50  # part (a): a secondary and a supplementary copy of every 50th read
+# the kernel calls leg 5 keeps (see PIPELINE_CALL_SITES): the build's
+# rank_cum, the .bg importer's, and rank under find
+FORMATS_CALL_SITES = {
+    "rank_cum": PIPELINE_CALL_SITES["rank_cum"],
+    "rank_cum_import": ("biograph_tpu_torch.io.bgimport", "rank_cum", rank_cum_ops.rank_cum_plain, (), 0),
+    "rank": PIPELINE_CALL_SITES["rank"],
+}
+# leg 5's block ids (see _CRAM_INT_SERIES) and their methods; rANS only on
+# series whose bytes stay below 255
+LEG5_CRAM_METHODS = {2: "rans0", 4: "rans0", 6: "rans1", 11: "rans0", 12: "rans0", 13: "rans0", 14: "rans1",
+                     15: "rans1", 21: "rans0", 22: "rans1", 23: "gzip", 1: "gzip", 3: "gzip", 5: "gzip", 8: "gzip",
+                     9: "gzip", 10: "gzip"}
+
+
+def launched(fn):
+    """(fn(), {kernel: launches in fn()}), the counts read before and after
+    and left running, so a leg's total is their count at its end."""
+    before = {name: w.launches for name, w in WRAPPERS.items()}
+    out = fn()
+    return out, {name: w.launches - before[name] for name, w in WRAPPERS.items()}
+
+
+def leg3_records(dev, genome, codes, lengths):
+    """Leg 3's reads as an aligner's BAM records: names r<pair>, FLAG 0x1
+    | 0x40/0x80, the placement ``place_reads`` gives each on the genome
+    (its strand: a reverse-strand read stored reverse-complemented, its
+    qualities reversed), unplaced reads and every UNMAPPED_EVERY-th read
+    unmapped, a secondary and a supplementary copy of every EXTRA_EVERY-th
+    read; quality 'I' as leg 3's FASTQ has it.  Returns (records, reads
+    placed)."""
+    from biograph_tpu_torch.io.bamwrite import SamRecord
+    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads
+
+    index = RefKmerIndex.build(genome, 13, device=dev)
+    pl = place_reads(index, codes, lengths)
+    text = np.frombuffer(b"ACGT", np.uint8)[codes]
+    rc_text = np.frombuffer(b"TGCA", np.uint8)[codes]
+    recs = []
+    for i, n in enumerate(lengths.tolist()):
+        flag = 0x1 | (0x40 if i % 2 == 0 else 0x80)
+        placed = pl.pos[i] >= 0 and i % UNMAPPED_EVERY != 7
+        if placed and pl.is_rc[i]:
+            flag |= 0x10
+            seq = rc_text[i, :n][::-1].tobytes().decode()
+        else:
+            seq = text[i, :n].tobytes().decode()
+        if placed:
+            rec = SamRecord(qname=f"r{i // 2}", flag=flag, rname="chr1", pos=int(pl.pos[i]) + 1, mapq=60,
+                            cigar=[(n, "M")], seq=seq, qual="I" * n, tags={"NM": int(pl.mismatches[i])})
+        else:
+            rec = SamRecord(qname=f"r{i // 2}", flag=flag | 0x4, rname="*", pos=0, mapq=0, cigar=[], seq=seq, qual="I" * n)
+        recs.append(rec)
+        if i % EXTRA_EVERY == 3:
+            recs += [dataclasses.replace(rec, flag=rec.flag | extra) for extra in (0x100, 0x800)]
+    return recs, int((pl.pos >= 0).sum())
+
+
+def formats_bam_part(dev, genome, tmp, want, codes, lengths):
+    """(a): leg 3's reads as a BAM through ``create --paired --correct`` on
+    the card, held to the JAX CPU leg's digests; the import threaded and
+    serial.  Returns (what to print, the records, the kept calls)."""
+    from biograph_tpu_torch import cli, native
+    from biograph_tpu_torch.io import bam as bam_io
+    from biograph_tpu_torch.io.bamwrite import write_bam
+
+    (recs, placed), place_s = timed(lambda: leg3_records(dev, genome, codes, lengths))
+    bam = os.path.join(tmp, "leg5.bam")
+    n_written, write_s = timed(lambda: write_bam(bam, [("chr1", len(genome))], recs))
+    raw = np.fromfile(bam, np.uint8)
+    threaded, threaded_s = timed(lambda: native.bgzf_decompress_native(raw))
+    serial, serial_s = timed(lambda: bam_io._bgzf_decompress(raw))
+    if threaded.tobytes() != serial:
+        raise AssertionError("formats (a): the threaded inflation differs from the serial walk")
+    (batch, _), read_s = timed(lambda: bam_io.read_bam(bam))
+    if not (np.array_equal(batch.codes, codes) and np.array_equal(batch.lengths, lengths)):
+        raise AssertionError("formats (a): the BAM's reads are not leg 3's reads")
+    out = {"reads": len(lengths), "records": n_written, "placed": placed, "bam_bytes": int(raw.size), "blocks": len(native.bgzf_blocks(raw)[0]),
+           "place_s": place_s, "write_s": write_s, "inflate_threaded_s": threaded_s, "inflate_serial_s": serial_s, "read_bam_s": read_s}
+    path = os.path.join(tmp, "leg5_bam.bgt")
+    stage = ["create_bam"]
+    with kept_calls({"rank_cum": FORMATS_CALL_SITES["rank_cum"]}, stage) as kept:
+        (_, launches), seconds = timed(lambda: launched(lambda: cli.main(["create", "--reads", bam, "--out", path, *CREATE_ARGS, "--device", dev.type])))
+    got = artifact_digests(path)
+    for key in ("seqset", "readmap", "n_entries"):
+        if got[key] != want[key]:
+            raise AssertionError(f"formats (a): create from BAM differs from the JAX CPU leg's file in {key}")
+    with open(os.path.join(path, "qc", "create_stats.json")) as f:
+        stages = json.load(f)["timings"]
+    out.update(create_s=seconds, create_stages=stages, create_launches=launches)
+    return out, recs, kept
+
+
+def formats_cram_part(dev, genome, tmp, recs, fa):
+    """(b): the first CRAM_PAIRS pairs of (a)'s records as CRAM and as BAM,
+    each through ``create`` on the card: equal artifacts."""
+    from biograph_tpu_torch import cli
+    from biograph_tpu_torch.core import dna
+    from biograph_tpu_torch.io.bamwrite import write_bam
+    from biograph_tpu_torch.io.cram import read_cram_batch
+    from biograph_tpu_torch.index.reference import Reference
+
+    part = [r for r in recs if int(r.qname[1:]) < CRAM_PAIRS]
+    refs = [("chr1", len(genome))]
+    cram, bam = os.path.join(tmp, "leg5.cram"), os.path.join(tmp, "leg5_part.bam")
+    _, cram_write_s = timed(lambda: write_cram(cram, refs, {"chr1": dna.codes_to_seq(genome)}, part, slice_records=10_000,
+                                               container_slices=1, methods=LEG5_CRAM_METHODS))
+    write_bam(bam, refs, part)
+    (batch, _), decode_s = timed(lambda: read_cram_batch(cram, Reference.from_reference_dir(fa)))
+    out = {"records": len(part), "reads": batch.num_reads, "cram_bytes": os.path.getsize(cram), "bam_bytes": os.path.getsize(bam),
+           "cram_write_s": cram_write_s, "cram_decode_s": decode_s}
+    digests = {}
+    for name, path, extra in (("cram", cram, ["--ref", fa]), ("bam", bam, [])):
+        bgt = os.path.join(tmp, f"leg5_{name}.bgt")
+        (_, launches), seconds = timed(lambda: launched(lambda: cli.main(["create", "--reads", path, "--out", bgt, *extra, *CREATE_ARGS, "--device", dev.type])))
+        digests[name] = artifact_digests(bgt)
+        out[f"create_{name}_s"], out[f"create_{name}_launches"] = seconds, launches
+    if digests["cram"] != digests["bam"]:
+        raise AssertionError("formats (b): create from CRAM differs from create from the BAM of the same records")
+    out["n_entries"] = digests["cram"]["n_entries"]
+    return out
+
+
+def find_queries(codes, lengths, seed=SEED + 71):
+    """BG_QUERIES seeded queries: substrings of 20-100 bases of leg 3's
+    reads (before correction), and one in eight random (mostly absent).
+    Returns (codes [n, 100] uint8, lengths int32)."""
+    n = BG_QUERIES
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, len(lengths), n)
+    q_len = np.minimum(rng.integers(20, 101, n), lengths[rows]).astype(np.int32)
+    start = (rng.random(n) * (lengths[rows] - q_len + 1)).astype(np.int64)
+    q = codes[rows[:, None], np.minimum(start[:, None] + np.arange(100), codes.shape[1] - 1)]
+    q = np.where(np.arange(100)[None, :] < q_len[:, None], q, 0).astype(np.uint8)
+    rand = rng.random(n) < 0.125
+    q[rand] = np.where(np.arange(100)[None, :] < q_len[rand, None], rng.integers(0, 4, (int(rand.sum()), 100)), 0)
+    return q, q_len
+
+
+def formats_bg_part(dev, tmp, leg3_bgt, want, codes, lengths):
+    """(c): leg 3's store as a .bg dir (v1.1, the least widths): opened with
+    BioGraph on the card (one rank_cum launch, held against its plain
+    version), upgraded to a .bgt equal to leg 3's, and BG_QUERIES finds
+    equal on the .bg store and the .bgt store, their rank calls held."""
+    from biograph_tpu_torch import cli
+    from biograph_tpu_torch.api import BioGraph
+    from biograph_tpu_torch.convert import seqset_to_numpy
+    from biograph_tpu_torch.index.readmap import Readmap
+    from biograph_tpu_torch.index.seqset import Seqset
+
+    ss = Seqset.load(os.path.join(leg3_bgt, "seqset"), "cpu")
+    rm = Readmap.load(os.path.join(leg3_bgt, "readmap"), ss, "cpu")
+    ss_np = seqset_to_numpy(ss)
+    rm_np = {f: getattr(rm, f).numpy() for f in ("offsets", "read_lengths", "is_forward", "mate_pair_ptr")}
+    bits = {"entry_sizes": least_bits(ss_np["entry_sizes"]), "shared": least_bits(ss_np["shared"]),
+            "read_lengths": least_bits(rm_np["read_lengths"]), "mate_loop_ptr": least_bits(rm_np["mate_pair_ptr"])}
+    bg_dir = os.path.join(tmp, "leg3.bg")
+    _, write_s = timed(lambda: write_bg_dir(bg_dir, ss_np, rm_np, bits=bits))
+    del ss, rm
+    stage = ["import"]
+    sites = {k: FORMATS_CALL_SITES[k] for k in ("rank_cum_import", "rank")}
+    with kept_calls(sites, stage) as kept:
+        (bg, import_launches), import_s = timed(lambda: launched(lambda: BioGraph(bg_dir, device=dev)))
+        if import_launches["rank_cum"] != int(dev.type == "cuda"):  # a CPU tensor takes the plain version
+            raise AssertionError(f"formats (c): opening the .bg launched rank_cum {import_launches['rank_cum']} times, want 1")
+        up = os.path.join(tmp, "leg3_up.bgt")
+        (_, up_launches), up_s = timed(lambda: launched(lambda: cli.main(["upgrade", "--in", bg_dir, "--out", up, "--device", dev.type])))
+        got, leg3 = artifact_digests(up), artifact_digests(leg3_bgt)
+        read_ids = leg3["readmap"].pop("read_ids"), got["readmap"].pop("read_ids")
+        if got != leg3 or got["seqset"] != want["seqset"] or got["n_entries"] != want["n_entries"]:
+            raise AssertionError("formats (c): upgrade of the .bg differs from leg 3's .bgt")
+        bgt = BioGraph(leg3_bgt, device=dev)
+        q, q_len = find_queries(codes, lengths)
+        qd, ld = torch.from_numpy(q).to(dev), torch.from_numpy(q_len).to(dev)
+        stage[0] = "find_bg"
+        (on_bg, find_launches), find_bg_s = timed(lambda: launched(lambda: bg.seqset.d.find(qd, ld)))
+        stage[0] = "find_bgt"
+        on_bgt, find_bgt_s = timed(lambda: bgt.seqset.d.find(qd, ld))
+    for field in ("begin", "end", "size"):
+        if not torch.equal(getattr(on_bg, field), getattr(on_bgt, field)):
+            raise AssertionError(f"formats (c): find on the .bg store and on the .bgt differ in {field}")
+    found = int((on_bg.begin < on_bg.end).sum())
+    out = {"entries": bg.seqset.n_entries, "bits": bits, "bg_bytes": sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(bg_dir) for f in fs),
+           "write_s": write_s, "import_s": import_s, "import_launches": import_launches, "upgrade_s": up_s, "upgrade_launches": up_launches,
+           "read_ids_differ": read_ids[0] != read_ids[1], "queries": len(q_len), "found": found, "find_bg_s": find_bg_s,
+           "find_bgt_s": find_bgt_s, "find_launches": find_launches}
+    return out, kept
+
+
+def write_truth_vcf(path, records):
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for chrom, pos, ref, alt in records:
+            f.write(f"{chrom}\t{pos}\t.\t{ref}\t{alt}\t50\tPASS\t.\n")
+    return path
+
+
+def formats_export_part(dev, genome, tmp, leg3_bgt, fa):
+    """(d): ``export_aligned`` on leg 3's store over the trimmed library's
+    truth VCF on the card, read back; over EXPORT_REGION's records on the
+    card and on a CPU copy, equal record for record (the BAM's bytes and its
+    records read back), and every one of them in the whole run's BAM."""
+    import contextlib as _ctx
+    import io as _io
+
+    from biograph_tpu_torch import cli
+    from biograph_tpu_torch.io.bam import read_bam
+
+    truth = truth_records(trimmed_paired_library(genome, **TRIMMED)[3], "chr1")
+    vcf_all = write_truth_vcf(os.path.join(tmp, "leg3_truth.vcf"), truth)
+    vcf_region = write_truth_vcf(os.path.join(tmp, "leg3_truth_region.vcf"),
+                                 [t for t in truth if EXPORT_REGION[0] < t[1] <= EXPORT_REGION[1]])
+
+    def run(vcf, out, device):
+        with _ctx.redirect_stdout(_io.StringIO()):
+            cli.main(["export_aligned", "--biograph", leg3_bgt, "--ref", fa, "--vcf", vcf, "--out", out, "--device", device])
+        return out
+
+    full, full_s = timed(lambda: run(vcf_all, os.path.join(tmp, "leg3_aligned.bam"), dev.type))
+    (batch, _), read_s = timed(lambda: read_bam(full))
+    if batch.num_reads == 0 or (batch.flags & 0x4).any():
+        raise AssertionError("formats (d): the exported BAM holds no read, or an unplaced one")
+    with open(os.path.join(leg3_bgt, "metadata.json")) as f:
+        imported = json.load(f)["num_reads"]
+    out = {"variants": len(truth), "records": batch.num_reads, "share_of_reads_written": batch.num_reads / imported,
+           "export_s": full_s, "read_back_s": read_s}
+    region = {}
+    for device in (dev.type, "cpu"):
+        path, out[f"region_{device}_s"] = timed(lambda: run(vcf_region, os.path.join(tmp, f"leg3_region_{device}.bam"), device))
+        with open(path, "rb") as f:
+            region[device] = (f.read(), read_bam(path)[0])
+    (card_bytes, card), (cpu_bytes, cpu) = region[dev.type], region["cpu"]
+    if card_bytes != cpu_bytes or card.names != cpu.names or not all(
+        np.array_equal(getattr(card, k), getattr(cpu, k)) for k in ("codes", "lengths", "flags")
+    ):
+        raise AssertionError("formats (d): export_aligned over the region differs from a CPU copy's")
+    names = set(batch.names)
+    if cpu.num_reads == 0 or any(n not in names for n in cpu.names):
+        raise AssertionError("formats (d): the region's records are not all in the whole run's BAM")
+    out["region_records"] = cpu.num_reads
+    return out
+
+
+def formats_store_part(dev, leg3_bgt, tmp, genome):
+    """(e): ``query``, ``stats`` and ``export_fastq`` on leg 3's store on
+    the card and on the CPU: equal output."""
+    import contextlib as _ctx
+    import io as _io
+
+    from biograph_tpu_torch import cli
+    from biograph_tpu_torch.core import dna
+
+    rng = np.random.default_rng(SEED + 73)
+    queries = [dna.codes_to_seq(genome[s : s + n]) for s, n in zip(rng.integers(0, len(genome) - 100, 3), (12, 40, 100))]
+    out, texts = {}, {}
+    for device in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        buf = _io.StringIO()
+        with _ctx.redirect_stdout(buf):
+            for q in queries:
+                cli.main(["query", "--biograph", leg3_bgt, "--query", q, "--device", device])
+            cli.main(["stats", leg3_bgt, "--device", device])
+        fq = os.path.join(tmp, f"leg3_export_{device}.fq")
+        with _ctx.redirect_stdout(_io.StringIO()):
+            cli.main(["export_fastq", "--biograph", leg3_bgt, "--out", fq, "--device", device])
+        with open(fq, "rb") as f:
+            texts[device] = (buf.getvalue(), f.read())
+        out[f"{device}_s"] = time.perf_counter() - t0
+    if texts[dev.type] != texts["cpu"]:
+        raise AssertionError("formats (e): query, stats or export_fastq on the card differ from the CPU's")
+    out["export_fastq_reads"] = texts["cpu"][1].count(b"\n@") + 1
+    return out
+
+
+def formats_phase(dev, genome, tmp, leg3_bgt):
+    """Leg 5: every read and archive format, parts (a)-(e) (the docstring of
+    this script), each kernel call kept and held against its plain version.
+    Returns (what to print, the kernels' launches over the leg)."""
+    want = read_create_leg_file()
+    fa = fasta_dir(os.path.join(tmp, "leg5_ref"), genome, "chr1")
+    codes, lengths = corrected_leg_reads(genome)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    out = {}
+    (out["bam"], recs, kept_a), out["bam_s"] = timed(lambda: formats_bam_part(dev, genome, tmp, want, codes, lengths))
+    out["cram"], out["cram_s"] = timed(lambda: formats_cram_part(dev, genome, tmp, recs, fa))
+    del recs
+    (out["bg"], kept_c), out["bg_s"] = timed(lambda: formats_bg_part(dev, tmp, leg3_bgt, want, codes, lengths))
+    out["export"], out["export_s"] = timed(lambda: formats_export_part(dev, genome, tmp, leg3_bgt, fa))
+    out["store"], out["store_s"] = timed(lambda: formats_store_part(dev, leg3_bgt, tmp, genome))
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    out["holds"] = hold_calls({**kept_a, **kept_c}, FORMATS_CALL_SITES, "leg 5's")
+    out["holds_max_abs_err"] = 0
+    for label, kernel in (("create_bam", "rank_cum"), ("import", "rank_cum_import"), ("find_bg", "rank"), ("find_bgt", "rank")):
+        if kernel not in out["holds"].get(label, {}):
+            raise AssertionError(f"formats: {label} made no {kernel} call")
+    return out, launches
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -3248,6 +4026,11 @@ def main():
     bwt_checked, seconds = timed(lambda: bwt_checks(dev, genome, want4))
     say(phase="bwt", ok=True, card=card, seconds=seconds, **bwt_checked)
 
+    # leg 5: every read and archive format through the CLI and the SDK,
+    # from leg 3's reads and store
+    (formats, formats_launches), seconds = timed(lambda: formats_phase(dev, genome, tmp.name, leg3_bgt))
+    say(phase="formats", ok=True, card=card, seconds=seconds, launches={k: v for k, v in formats_launches.items() if v}, **formats)
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
@@ -3264,6 +4047,7 @@ def main():
         r["launches_create"] = create_launches[r["name"]]
         r["launches_merge"] = merge_launches[r["name"]]
         r["launches_pipeline"] = pipeline_launches[r["name"]]
+        r["launches_formats"] = formats_launches[r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:

@@ -102,8 +102,8 @@ def test_biograph_missing_and_bg_and_the_device(tmp_path, archives):
         BioGraph(str(tmp_path / "nope"), device="cpu")
     bg_dir = tmp_path / "sample.bg"
     os.makedirs(bg_dir)
-    (bg_dir / "seqset").write_bytes(b"PK")  # the reference's layout: a file, not a dir
-    with pytest.raises(NotImplementedError, match="bgimport"):
+    (bg_dir / "seqset").write_bytes(b"PK")  # the reference's layout, a file: read by io/bgimport.py
+    with pytest.raises(KeyError, match="seqset.json"):  # a ZIP with no members
         BioGraph(str(bg_dir), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -161,11 +161,19 @@ def test_merge(created):
 
 
 def test_inputs_not_ported_yet_raise(tmp_path):
+    """Every read format is ported now: a missing BAM, SAM, CRAM or QSEQ
+    file reaches its reader, which raises FileNotFoundError, and CRAM
+    without --ref stops first.  (tests/test_torch_cli_formats.py reads them.)"""
     from biograph_tpu_torch import cli as tcli
 
-    for name, module in (("r.bam", "io/bam.py"), ("r.sam", "io/bam.py"), ("r.cram", "io/cram.py"), ("r.qseq.gz", "io/qseq.py")):
-        with pytest.raises(NotImplementedError, match=module):
+    for name in ("r.bam", "r.sam", "r.qseq.gz", "r.qseq.bz2"):
+        with pytest.raises(FileNotFoundError, match=name):
             tcli.main(["create", "--reads", str(tmp_path / name), "--out", str(tmp_path / "o.bgt"), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--ref"):
+        tcli.main(["create", "--reads", str(tmp_path / "r.cram"), "--out", str(tmp_path / "o.bgt"), "--device", "cpu"])
+    (tmp_path / "g.fa").write_text(">c\nACGTACGTAC\n")
+    with pytest.raises(FileNotFoundError, match="r.cram"):
+        tcli.main(["create", "--reads", str(tmp_path / "r.cram"), "--ref", str(tmp_path / "g.fa"), "--out", str(tmp_path / "o.bgt"), "--device", "cpu"])
 
 
 def test_help_lists_what_exists(capsys):
@@ -174,7 +182,10 @@ def test_help_lists_what_exists(capsys):
     with pytest.raises(SystemExit):
         tcli.main(["--help"])
     out = capsys.readouterr().out
-    assert "{version,create,kmers,merge,reference,ref2bwt,bwtquery,discovery,coverage,full_pipeline,grm,qual_classifier,gt_classifier}" in out
+    assert (
+        "{version,create,kmers,merge,reference,ref2bwt,bwtquery,discovery,coverage,full_pipeline,grm,qual_classifier,"
+        "gt_classifier,query,dump_flat,ref2seqset,metadata,export_fastq,stats,upgrade,export_aligned,refhash}"
+    ) in out
     assert "squareoff" not in out and "vdb" not in out
     tcli.main(["version"])
     assert capsys.readouterr().out.startswith("biograph_tpu_torch version ")

@@ -392,8 +392,8 @@ def test_discovery_inputs_not_ported_raise(toy, tmp_path):
         tcli.main(["discovery", "--mode", "assemble", "--biograph", bgt, "--ref", fa, "--out", str(tmp_path / "o.vcf"), "--dist-dir", str(tmp_path), "--device", "cpu"])
     pac = tmp_path / "bwa_ref"
     pac.mkdir()
-    (pac / "genome.pac").write_bytes(b"\0")
-    with pytest.raises(FileNotFoundError, match="io/pac.py"):
+    (pac / "genome.pac").write_bytes(b"\0")  # no .ann beside it, under no name io/pac.py reads
+    with pytest.raises(FileNotFoundError, match="no FASTA or BWA pac index"):
         tcli.main(["discovery", "--mode", "assemble", "--biograph", bgt, "--ref", str(pac), "--out", str(tmp_path / "o.vcf"), "--device", "cpu"])
     with pytest.raises(SystemExit, match="--biograph"):
         tcli.main(["discovery", "--mode", "assemble", "--ref", fa, "--out", str(tmp_path / "o.vcf"), "--device", "cpu"])
