@@ -15,10 +15,12 @@ tensors are touched.  ``create`` reads FASTQ, BAM, SAM, CRAM (with
 BWA ``.pac`` index.  ``grm`` takes ``--cache-dir`` where the JAX package
 reads ``BGT_CACHE``; ``full_pipeline`` keeps its FM-index cache under its
 run dir and writes discovery's counters to ``qc/discovery_stats.json``.
-The tool subcommands (``squareoff``, ``pvcf_pipe``, ``vcf_sample_paste``,
-``freq_filter``, ``rvg_cleaner``, ``vcf_to_ml_table``, ``mendelian``,
-``vdb``) wait for the modules they call, and ``discovery --dist-dir`` for
-``parallel/discovery.py``.
+The tool subcommands ``squareoff`` and ``pvcf_pipe`` (each sample's store
+on ``--device``), ``vcf_sample_paste``, ``freq_filter``, ``rvg_cleaner``,
+``vcf_to_ml_table``, ``mendelian`` and ``vdb`` (the flat ``ingest``,
+``list``, ``query``, ``export`` and the ``vcf``, ``anno`` and ``study``
+groups) print the JAX package's summaries.  Only ``discovery --dist-dir``
+waits, for ``parallel/discovery.py``.
 
 Stage timings are read after the device has finished the stage.
 """
@@ -28,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -850,6 +853,228 @@ def cmd_stats(args):
         print(json.dumps(bg.readmap.get_pair_stats(), indent=1))
 
 
+def _open_samples(args, dev):
+    """--biographs opened on dev, and their names: --samples, else each
+    store's accession_id or its directory's name."""
+    from biograph_tpu_torch.api import BioGraph
+
+    bgs = [BioGraph(p, device=dev) for p in args.biographs]
+    return bgs, args.samples or [bg.metadata.get("accession_id") or os.path.basename(bg.path.rstrip("/")) for bg in bgs]
+
+
+def cmd_squareoff(args):
+    """Union call set re-genotyped in every sample -> multi-sample VCF.
+    (reference: biograph squareoff, bgbinary_cmds.py)"""
+    from biograph_tpu_torch.tools.squareoff import squareoff
+
+    dev = resolve_device(args.device)
+    ref = _load_reference(args.ref)
+    bgs, names = _open_samples(args, dev)
+    t0 = time.time()
+    recs = squareoff(args.vcfs, bgs, ref, args.out, names)
+    _fence(dev)
+    print(f"squareoff: {len(recs)} union records x {len(bgs)} samples ({time.time()-t0:.1f}s) -> {args.out}")
+
+
+def cmd_pvcf_pipe(args):
+    """Project-level VCF: union squareoff across samples + Mendelian
+    annotation (reference: tools/pvcf_pipe.py, which ships as a stub whose
+    docstring describes this merge -> per-sample pcmp -> paste -> meanno
+    chain)."""
+    from biograph_tpu_torch.tools.squareoff import squareoff
+
+    dev = resolve_device(args.device)
+    ref = _load_reference(args.ref)
+    bgs, names = _open_samples(args, dev)
+    if args.pedigree:
+        from biograph_tpu_torch.utils.pedigree import Pedigree
+
+        ped = Pedigree(args.pedigree)
+        missing = [n for n in names if n not in ped]
+        if missing:
+            raise SystemExit(f"samples not in pedigree: {missing}")
+    t0 = time.time()
+    target = args.output if not args.pedigree else args.output + ".sqoff.tmp.vcf"
+    recs = squareoff(args.vcfs, bgs, ref, target, names)
+    _fence(dev)
+    print(f"pvcf: {len(recs)} union records x {len(bgs)} samples ({time.time()-t0:.1f}s)")
+    if args.pedigree:
+        from biograph_tpu_torch.tools.mendelian import annotate_vcf
+
+        report = annotate_vcf(target, args.output, ped)
+        base = args.output.rsplit(".vcf", 1)[0]
+        report.write_json(base + "_stats.json")
+        report.write_text(base + "_stats.txt")
+        os.remove(target)
+        print(f"pvcf: mendelian-annotated -> {args.output} (+_stats.json/_stats.txt)")
+    else:
+        print(f"pvcf: -> {args.output}")
+
+
+def cmd_vcf_tools(args):
+    """Cohort VCF utilities (reference: tools/vcf_sample_paste.py,
+    freq_filter.py, rvg_cleaner.py, vcf_to_ml_table.py)."""
+    from biograph_tpu_torch.tools import vcf_tools
+
+    if args.cmd == "vcf_sample_paste":
+        n = vcf_tools.sample_paste(args.vcfs, args.output)
+        print(f"vcf_sample_paste: {n} records -> {args.output}", file=sys.stderr)
+    elif args.cmd == "rvg_cleaner":
+        stats = vcf_tools.rvg_cleaner(args.variants, args.output)
+        print(f"rvg_cleaner: {stats}", file=sys.stderr)
+    elif args.cmd == "freq_filter":
+        stats = vcf_tools.freq_filter(
+            args.variants, args.output,
+            min_observations=args.min_observations,
+            min_individuals=args.individuals,
+            depth_field=args.depth_field,
+        )
+        print(f"freq_filter: {stats}", file=sys.stderr)
+    else:
+        n = vcf_tools.vcf_to_ml_table(args.vcf, args.output)
+        print(f"vcf_to_ml_table: {n} allele rows -> {args.output}", file=sys.stderr)
+
+
+def cmd_mendelian(args):
+    """Mendelian-error annotation of a family VCF against a pedigree
+    (reference: python/biograph/tools/mendelian_annotator.py)."""
+    from biograph_tpu_torch.tools.mendelian import annotate_vcf
+    from biograph_tpu_torch.utils.pedigree import Pedigree
+
+    ped = Pedigree(args.pedigree)
+    report = annotate_vcf(args.vcf, args.output, ped, ref_count=args.ref_count)
+    base = args.output[: -len(".vcf.gz")] if args.output.endswith(".vcf.gz") else args.output.rsplit(".vcf", 1)[0]
+    report.write_json(base + "_stats.json")
+    report.write_text(base + "_stats.txt")
+    overall = report.finalize()["overall"]
+    n_err = sum(c["err"] for c in overall["type_counts"].values())
+    print(f"mendelian: {report.var_count} variants, {n_err} with a family error -> {args.output} (+_stats.json/_stats.txt)")
+
+
+def cmd_vdb(args):
+    """Local variant warehouse (reference: biograph vdb, python/biograph/vdb/).
+
+    Command groups mirror vcf_cmd/anno_cmd/study_cmd/query_cmd; the flat
+    ingest/list/query/export spellings are the original VDB-lite surface and
+    keep working on the same sqlite store."""
+    from biograph_tpu_torch.tools import vdb
+
+    c = args.vdb_cmd
+    if c == "ingest":
+        n = vdb.ingest(args.db, args.vcf, args.sample)
+        print(f"vdb ingest: {n} records from {args.vcf} as {args.sample!r}")
+        return
+    if c == "list":
+        for s, info in sorted(vdb.list_samples(args.db).items()):
+            print(f"{s}\t{info['records']} records\t{info['ingested']}")
+        return
+    if c == "query" and getattr(args, "sql", None) is None:
+        rows = vdb.query(
+            args.db,
+            sample=args.sample,
+            chrom=args.chrom,
+            pos_min=args.pos_min,
+            pos_max=args.pos_max,
+            min_qual=args.min_qual,
+            passing=args.passing,
+        )
+        for r in rows[: args.limit]:
+            print(f"{r['sample']}\t{r['chrom']}\t{r['pos']}\t{r['ref']}\t{r['alt']}\t{r['qual']:.0f}\t{r['filter']}\t{r['gt']}")
+        print(f"# {len(rows)} rows")
+        return
+    if c == "export" and not hasattr(args, "aid"):
+        n = vdb.export(args.db, args.sample, args.out)
+        print(f"vdb export: {n} records -> {args.out}")
+        return
+    if c == "vcf" and args.vcf_cmd == "sort":  # pure file op, no warehouse
+        n = vdb.sort_vcf(args.input, args.output, chromosomal=args.chromosomal)
+        print(f"sorted {n} records -> {args.output}")
+        return
+
+    v = vdb.VDB(args.db)
+    try:
+        if c == "query":  # raw SQL (query_cmd.py / Athena analog)
+            for row in v.query(args.sql):
+                print("\t".join("." if x is None else str(x) for x in row))
+        elif c == "vcf":
+            vc = args.vcf_cmd
+            if vc == "import":
+                aid, n = v.import_vcf(
+                    args.input, sample=args.sample, description=args.description,
+                    refname=args.refname, aid=args.aid,
+                )
+                print(f"{aid}\t{n} records")
+            elif vc == "list":
+                for r in v.list_vcfs(args.sample):
+                    print(f"{r['aid']}\t{r['sample_name']}\t{r['record_count']}\t{r['refname']}\t{r['imported_on']}")
+            elif vc == "export":
+                n = v.export_vcf(args.aid, args.output)
+                print(f"vdb vcf export: {n} records -> {args.output}")
+            elif vc == "delete":
+                print(f"deleted {v.delete_vcf(*args.aid)} dataset(s)")
+        elif c == "anno":
+            ac = args.anno_cmd
+            if ac == "import":
+                aid, n = v.import_anno(args.input, name=args.name, version=args.version)
+                print(f"{aid}\t{n} records")
+            elif ac == "list":
+                for r in v.list_annos():
+                    print(f"{r['aid']}\t{r['anno_name']}\t{r['version']}\t{r['record_count']}\t{r['imported_on']}")
+            elif ac == "export":
+                n = v.export_anno(args.aid, args.output)
+                print(f"vdb anno export: {n} records -> {args.output}")
+            elif ac == "delete":
+                print(f"deleted {v.delete_anno(*args.aid)} annotation(s)")
+        elif c == "study":
+            sc = args.study_cmd
+            if sc == "create":
+                v.create_study(args.study_name)
+                print(f"Study '{args.study_name}' created")
+            elif sc == "list":
+                for name, created in v.list_studies():
+                    print(f"{name:<21} {(created or '')[:19]}")
+            elif sc == "show":
+                s = v.show_study(args.study_name)
+                for k, val in sorted(s["meta"].items()):
+                    print(f"{k:>16}: {val}")
+                print(f"{'checkpoint':>16}: {s['checkpoint']}")
+                print(f"\n{'sample_name':<17}variant_count")
+                for name, count in s["samples"]:
+                    print(f"{name:<17}{count}")
+            elif sc == "add":
+                if args.src_study:
+                    cp = v.copy_from_study(args.src_study, args.checkpoint, args.study_name, args.sample)
+                else:
+                    cp = v.add_to_study(args.study_name, args.sample)
+                print(f"Study '{args.study_name}' at checkpoint {cp}")
+            elif sc == "filter":
+                cp, kept = v.filter_study(args.study_name, args.include or args.exclude, exclude=args.include is None)
+                print(f"checkpoint {cp}: {kept} rows kept")
+            elif sc == "export":
+                n = v.export_study(
+                    args.study_name, args.output, checkpoint=args.checkpoint,
+                    anno=args.anno, square_off=args.square_off,
+                    chromosomal=args.chromosomal,
+                    fields=args.fields.split(":") if args.fields else None,
+                    no_header=args.no_header,
+                )
+                print(f"study export: {n} sites -> {args.output}")
+            elif sc == "revert":
+                cp = v.revert_study(args.study_name, args.checkpoint)
+                print(f"Study '{args.study_name}' reverted to checkpoint {cp}")
+            elif sc == "freeze":
+                v.freeze_study(args.study_name)
+                print(f"Study '{args.study_name}' frozen")
+            elif sc == "unfreeze":
+                v.freeze_study(args.study_name, frozen=False)
+                print(f"Study '{args.study_name}' unfrozen")
+            elif sc == "delete":
+                v.delete_study(args.study_name)
+                print(f"Study '{args.study_name}' deleted")
+    finally:
+        v.close()
+
+
 def _device_arg(p):
     p.add_argument("--device", default="cuda", help="torch device to run on (default cuda; cpu on the host)")
 
@@ -1072,6 +1297,162 @@ def main(argv=None):
     ph = sub.add_parser("refhash", help="reference fingerprint")
     ph.add_argument("--ref", required=True)
     ph.set_defaults(fn=cmd_refhash)
+
+    psq = sub.add_parser("squareoff", help="joint multi-sample re-genotyping")
+    psq.add_argument("--vcfs", nargs="+", required=True)
+    psq.add_argument("--biographs", nargs="+", required=True)
+    psq.add_argument("--ref", required=True)
+    psq.add_argument("--out", required=True)
+    psq.add_argument("--samples", nargs="+")
+    _device_arg(psq)
+    psq.set_defaults(fn=cmd_squareoff)
+
+    ppv = sub.add_parser("pvcf_pipe", help="project VCF: squareoff + meanno")
+    ppv.add_argument("--biographs", nargs="+", required=True, help=".bgt dirs")
+    ppv.add_argument("--vcfs", nargs="+", required=True, help="per-sample discovery VCFs forming the union")
+    ppv.add_argument("-r", "--ref", required=True)
+    ppv.add_argument("-p", "--pedigree", help="PED file (enables meanno)")
+    ppv.add_argument("--samples", nargs="+", help="sample names (match PED)")
+    ppv.add_argument("-o", "--output", required=True)
+    _device_arg(ppv)
+    ppv.set_defaults(fn=cmd_pvcf_pipe)
+
+    pvp = sub.add_parser("vcf_sample_paste", help="paste single-sample VCFs")
+    pvp.add_argument("vcfs", nargs="+")
+    pvp.add_argument("-o", "--output", default="/dev/stdout")
+    pvp.set_defaults(fn=cmd_vcf_tools)
+
+    pff = sub.add_parser("freq_filter", help="filter VCF by cohort support")
+    pff.add_argument("-v", "--variants", required=True, help="VCF ('-' = stdin)")
+    pff.add_argument("-o", "--output", default="/dev/stdout")
+    pff.add_argument("-m", "--min-observations", type=int, default=1)
+    pff.add_argument("-i", "--individuals", type=int, default=1)
+    pff.add_argument("-d", "--depth-field", default="AD")
+    pff.set_defaults(fn=cmd_vcf_tools)
+
+    prc = sub.add_parser("rvg_cleaner", help="drop pair-bare unphased noise")
+    prc.add_argument("-v", "--variants", default="/dev/stdin")
+    prc.add_argument("-o", "--output", default="/dev/stdout")
+    prc.set_defaults(fn=cmd_vcf_tools)
+
+    pml = sub.add_parser("vcf_to_ml_table", help="VCF -> per-allele ML table")
+    pml.add_argument("vcf")
+    pml.add_argument("-o", "--output", default="/dev/stdout")
+    pml.set_defaults(fn=cmd_vcf_tools)
+
+    pmn = sub.add_parser("mendelian", help="trio Mendelian-error annotation")
+    pmn.add_argument("-v", "--vcf", required=True, help="family VCF ('-' = stdin)")
+    pmn.add_argument("-p", "--pedigree", required=True, help="PED file")
+    pmn.add_argument(
+        "-r",
+        "--ref-count",
+        action="store_true",
+        help="count all-hom-ref trios as consistent instead of skipping",
+    )
+    pmn.add_argument("-o", "--output", required=True, help="annotated VCF out")
+    pmn.set_defaults(fn=cmd_mendelian)
+
+    pv = sub.add_parser("vdb", help="local variant warehouse")
+    vsub = pv.add_subparsers(dest="vdb_cmd", required=True)
+    # flat VDB-lite spellings (kept for compatibility)
+    vi = vsub.add_parser("ingest", help="(flat) import a VCF under a sample name")
+    vi.add_argument("--db", required=True)
+    vi.add_argument("--vcf", required=True)
+    vi.add_argument("--sample", required=True)
+    vl = vsub.add_parser("list", help="(flat) list samples")
+    vl.add_argument("--db", required=True)
+    vq = vsub.add_parser("query", help="filter query, or raw SQL when SQL is given")
+    vq.add_argument("--db", required=True)
+    vq.add_argument("sql", nargs="?", help="raw SELECT over the warehouse tables")
+    vq.add_argument("--sample")
+    vq.add_argument("--chrom")
+    vq.add_argument("--pos-min", type=int)
+    vq.add_argument("--pos-max", type=int)
+    vq.add_argument("--min-qual", type=float)
+    vq.add_argument("--passing", action="store_true")
+    vq.add_argument("--limit", type=int, default=50)
+    ve = vsub.add_parser("export", help="(flat) export a sample to VCF")
+    ve.add_argument("--db", required=True)
+    ve.add_argument("--sample", required=True)
+    ve.add_argument("--out", required=True)
+    # vcf group (reference: python/biograph/vdb/vcf_cmd.py)
+    pvv = vsub.add_parser("vcf", help="imported-VCF datasets")
+    vvsub = pvv.add_subparsers(dest="vcf_cmd", required=True)
+    x = vvsub.add_parser("import")
+    x.add_argument("--db", required=True)
+    x.add_argument("input")
+    x.add_argument("-s", "--sample", help="sample name (default: from VCF header)")
+    x.add_argument("-d", "--description", default="")
+    x.add_argument("-r", "--refname", help="reference name/hash (default: from file)")
+    x.add_argument("--aid", help="explicit GUID (default: autogenerate)")
+    x = vvsub.add_parser("list")
+    x.add_argument("--db", required=True)
+    x.add_argument("-s", "--sample", help="sample name prefix filter")
+    x = vvsub.add_parser("export")
+    x.add_argument("--db", required=True)
+    x.add_argument("-a", "--aid", required=True)
+    x.add_argument("-o", "--output", default="/dev/stdout")
+    x = vvsub.add_parser("delete")
+    x.add_argument("--db", required=True)
+    x.add_argument("aid", nargs="+")
+    x = vvsub.add_parser("sort")
+    x.add_argument("-i", "--input", default="/dev/stdin")
+    x.add_argument("-o", "--output", default="/dev/stdout")
+    x.add_argument("-c", "--chromosomal", action="store_true", help="natural order (1,2,10,X) instead of alphabetic")
+    x.set_defaults(db=".")  # sort is file->file; no warehouse needed
+    # anno group (anno_cmd.py)
+    pva = vsub.add_parser("anno", help="annotation datasets")
+    vasub = pva.add_subparsers(dest="anno_cmd", required=True)
+    x = vasub.add_parser("import")
+    x.add_argument("--db", required=True)
+    x.add_argument("input")
+    x.add_argument("-n", "--name", required=True)
+    x.add_argument("-V", "--version", default="1")
+    x = vasub.add_parser("list")
+    x.add_argument("--db", required=True)
+    x = vasub.add_parser("export")
+    x.add_argument("--db", required=True)
+    x.add_argument("-a", "--aid", required=True, help="aid or annotation name")
+    x.add_argument("-o", "--output", default="/dev/stdout")
+    x = vasub.add_parser("delete")
+    x.add_argument("--db", required=True)
+    x.add_argument("aid", nargs="+")
+    # study group (study_cmd.py)
+    pvs = vsub.add_parser("study", help="checkpointed variant studies")
+    vssub = pvs.add_subparsers(dest="study_cmd", required=True)
+    for name in ("create", "show", "freeze", "unfreeze", "delete"):
+        x = vssub.add_parser(name)
+        x.add_argument("--db", required=True)
+        x.add_argument("study_name")
+    x = vssub.add_parser("list")
+    x.add_argument("--db", required=True)
+    x = vssub.add_parser("add")
+    x.add_argument("--db", required=True)
+    x.add_argument("study_name")
+    x.add_argument("sample", nargs="+", help="sample name (wildcards ok) or aid")
+    x.add_argument("--from", dest="src_study", help="copy from this study")
+    x.add_argument("--checkpoint", type=int, help="with --from: source checkpoint")
+    x = vssub.add_parser("filter")
+    x.add_argument("--db", required=True)
+    x.add_argument("study_name")
+    g = x.add_mutually_exclusive_group(required=True)
+    g.add_argument("-i", "--include", help="keep variants matching this filter")
+    g.add_argument("-e", "--exclude", help="drop variants matching this filter")
+    x = vssub.add_parser("export")
+    x.add_argument("--db", required=True)
+    x.add_argument("study_name")
+    x.add_argument("-o", "--output", default="/dev/stdout")
+    x.add_argument("-a", "--anno")
+    x.add_argument("-c", "--chromosomal", action="store_true")
+    x.add_argument("--fields", help="FORMAT fields to export, ':'-separated")
+    x.add_argument("--checkpoint", type=int)
+    x.add_argument("--square-off", dest="square_off")
+    x.add_argument("--no-header", dest="no_header", action="store_true")
+    x = vssub.add_parser("revert")
+    x.add_argument("--db", required=True)
+    x.add_argument("study_name")
+    x.add_argument("--checkpoint", type=int, help="target (default: back one)")
+    pv.set_defaults(fn=cmd_vdb)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,9 +1,10 @@
 """VCF writing/reading (pure Python).
 
 Counterpart of ``biograph_tpu/io/vcf.py``, kept as the port's own copy: the
-writer streams one-sample records to a path (gzip when it ends in ``.gz``)
-in the same bytes but names this package in the ``##source=`` line; the
-reader is a light parser for tests and checks.
+writer streams records of one sample or of several to a path (gzip when it
+ends in ``.gz``) or to an open file, in the same bytes, but names this
+package in the ``##source=`` line by default; the reader is a light parser
+for tests and checks.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ class VcfRecord:
     id: str = "."
     filter: str = "PASS"
     info: Dict[str, object] = field(default_factory=dict)
-    fmt: Dict[str, object] = field(default_factory=dict)
+    fmt: Dict[str, object] = field(default_factory=dict)  # a dict a sample, or a list of them
 
     def info_str(self) -> str:
         if not self.info:
@@ -40,19 +41,35 @@ class VcfRecord:
 class VcfWriter:
     def __init__(
         self,
-        path: str,
+        path_or_file,
         sample: str = "SAMPLE",
         contigs: List[Tuple[str, int]] | None = None,
+        source: str = "biograph_tpu_torch",
         extra_headers: List[str] | None = None,
     ):
-        self._f = gzip.open(path, "wt") if path.endswith(".gz") else open(path, "w")
+        if isinstance(path_or_file, str):
+            self._f = (
+                gzip.open(path_or_file, "wt")
+                if path_or_file.endswith(".gz")
+                else open(path_or_file, "w")
+            )
+            self._own = True
+        else:
+            self._f = path_or_file
+            self._own = False
+        # single sample (str) or multi-sample (list[str]) columns
+        self.samples = [sample] if isinstance(sample, str) else list(sample)
+        self.sample = self.samples[0]
         self._f.write("##fileformat=VCFv4.2\n")
-        self._f.write("##source=biograph_tpu_torch\n")
+        self._f.write(f"##source={source}\n")
         for name, length in contigs or []:
             self._f.write(f"##contig=<ID={name},length={length}>\n")
         for h in extra_headers or []:
             self._f.write(h.rstrip("\n") + "\n")
-        self._f.write(f"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t{sample}\n")
+        self._f.write(
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t%s\n"
+            % "\t".join(self.samples)
+        )
         # ordering canary (the reference's assembly-pipeline order verifier /
         # sorted_output_pipeline_step invariant, modules/variants/assemble.cpp):
         # records must arrive chrom-grouped with non-decreasing positions —
@@ -77,7 +94,10 @@ class VcfWriter:
                     )
         self._last = (rec.chrom, rec.pos)
         qual = "." if rec.qual is None else ("%g" % rec.qual)
-        fmt_keys = list(rec.fmt) or ["GT"]
+        # rec.fmt: one dict (single sample) or list of dicts (multi-sample)
+        fmts = rec.fmt if isinstance(rec.fmt, list) else [rec.fmt]
+        fmt_keys = list(fmts[0].keys()) or ["GT"]
+        cols = [":".join(str(f.get(k, ".")) for k in fmt_keys) for f in fmts]
         self._f.write(
             "\t".join(
                 [
@@ -90,14 +110,15 @@ class VcfWriter:
                     rec.filter,
                     rec.info_str(),
                     ":".join(fmt_keys),
-                    ":".join(str(rec.fmt.get(k, ".")) for k in fmt_keys),
                 ]
+                + cols
             )
             + "\n"
         )
 
     def close(self):
-        self._f.close()
+        if self._own:
+            self._f.close()
 
     def __enter__(self):
         return self

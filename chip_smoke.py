@@ -125,6 +125,23 @@ on the card and on a CPU copy, equal record for record.  (e) ``query``,
 ``stats`` and ``export_fastq`` on the card against the CPU.  The build's
 and the importer's ``rank_cum`` and find's ``rank`` calls are kept, first
 and widest, and held against their plain versions.
+Leg 6 (``tools``) is the tools over three of those stores, three unrelated
+donors that a PED names proband, father and mother: leg 1's store with its
+VCF of the 2299 records (its contig renamed chr1, as leg 4's FASTA names
+it), leg 3's store with leg 2's discovery VCF, and leg 4's store with its
+discovery VCF.  ``pvcf_pipe --device cuda`` through the CLI, cold, squares
+off their union in each readmap (leg 1's by the hash route, the other two
+by the general route: rank, then chain_window) and annotates it against
+the PED.  Each sample's coverage is timed, and every rank, chain_window and
+chain_fixed call it makes is kept, first and widest, and held against its
+plain version; the union and the sample columns are held to
+``union_records`` and the PED; the annotated records of a region that
+spans a seam between two of the card's coverage batches (8 records each
+side) and an SV (an allele of 50 bases or more), the narrowest such, are
+held to squareoff and ``mendelian.annotate_vcf`` on a CPU copy of the
+three stores, given those records and their neighbours 2 kb either side
+(one coverage batch a sample); the cohort tools and vdb run through the CLI on the
+annotated VCF, and vdb's export gives the ingested sample's records back.
 Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
@@ -140,7 +157,8 @@ time and its heaviest kernels go to OUT.json; the ``kernels`` and
 ``rank_past_l2`` lines then also split a ``rank4_tiled`` call into its
 kernels.  The ``kernels`` line's ``launches_*`` columns are each kernel's
 launches in each leg's counted run (``launches_pipeline``: leg 4's cold
-``full_pipeline``; ``launches_formats``: the whole of leg 5).
+``full_pipeline``; ``launches_formats``: the whole of leg 5;
+``launches_tools``: leg 6's ``pvcf_pipe``).
 """
 
 from __future__ import annotations
@@ -3911,6 +3929,283 @@ def formats_phase(dev, genome, tmp, leg3_bgt):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# leg 6: the tools over three of the legs' stores
+# ---------------------------------------------------------------------------
+
+TOOLS_SAMPLES = ("proband", "father", "mother")  # the PED's names of leg 1's, leg 3's and leg 4's stores: three unrelated donors
+TOOLS_PED = "leg6\tproband\tfather\tmother\t1\t2\nleg6\tfather\t0\t0\t1\t1\nleg6\tmother\t0\t0\t2\t1\n"
+TOOLS_SEAM = 8  # hold (a)'s region: 8 walkable records each side of a seam between two of the card's coverage batches ...
+TOOLS_SV_BASES = 50  # ... and a walkable record with an allele of at least 50 bases (an SV)
+TOOLS_WIDEN = 2000  # the CPU copy is given the records up to 2 kb past the region's records on each side
+TOOLS_KERNELS = ("rank", "chain_window", "chain_fixed", "push4")
+
+
+def _plain_chain_fixed(blocks, entry_sizes, fixed, text, depth):
+    m = torch.full((text.shape[0],), depth, dtype=torch.int32, device=text.device)
+    return rank4_ops.chain_window_plain(blocks, entry_sizes, fixed, rank4_ops.contig_windows(text, depth), m, depth)
+
+
+# the kernels coverage calls in leg 6 (see PIPELINE_CALL_SITES), each call
+# kept under the sample whose readmap made it
+TOOLS_CALL_SITES = {
+    "rank": PIPELINE_CALL_SITES["rank"],
+    "chain_window": PIPELINE_CALL_SITES["chain_window"],
+    "chain_fixed": ("biograph_tpu_torch.ops.rank4", "chain_fixed", _plain_chain_fixed, (0, 1, 2), 3),
+}
+
+
+def renamed_contig(src, dst, old, new):
+    """A copy of a VCF with contig ``old`` named ``new``, in its records and
+    its ##contig line."""
+    with open(src) as f, open(dst, "w") as g:
+        for line in f:
+            if line.startswith(f"##contig=<ID={old},"):
+                line = line.replace(f"ID={old},", f"ID={new},", 1)
+            elif not line.startswith("#") and line.split("\t", 1)[0] == old:
+                line = new + line[len(old):]
+            g.write(line)
+    return dst
+
+
+@contextlib.contextmanager
+def per_sample_coverage(stage, names):
+    """While the block runs, each annotate_coverage call (squareoff makes
+    one a sample, in the order of ``names``) is timed, the device drained
+    before and after, and runs with ``stage[0]`` set to its sample for
+    ``kept_calls``: yields {sample: {seconds, records, launches}}."""
+    seen = {}
+    real = cov.annotate_coverage
+
+    def clocked(readmap, reference, records, *args, **kw):
+        name = names[len(seen)]
+        before = {k: WRAPPERS[k].launches for k in TOOLS_KERNELS}
+        stage[0] = name
+        try:
+            out, seconds = timed(lambda: real(readmap, reference, records, *args, **kw))
+        finally:
+            stage[0] = None
+        seen[name] = {"seconds": seconds, "records": len(records),
+                      "launches": {k: WRAPPERS[k].launches - before[k] for k in TOOLS_KERNELS}}
+        return out
+
+    try:
+        cov.annotate_coverage = clocked
+        yield seen
+    finally:
+        cov.annotate_coverage = real
+
+
+def vcf_rows(path):
+    """(header lines but ##source=, {(chrom, pos, ref, alt): record line}) of a VCF."""
+    head, rows = [], {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("##source="):
+                continue
+            if line.startswith("#"):
+                head.append(line)
+            else:
+                cols = line.split("\t", 5)
+                rows[(cols[0], int(cols[1]), cols[3], cols[4])] = line
+    return head, rows
+
+
+def sample_gts(path):
+    """{(pos, ref, alt): [GT of each sample column]} of a VCF."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#"):
+                cols = line.rstrip("\n").split("\t")
+                gi = cols[8].split(":").index("GT")
+                out[(int(cols[1]), cols[3], cols[4])] = [c.split(":")[gi] for c in cols[9:]]
+    return out
+
+
+def _walkable(r):
+    """True for a record annotate_coverage walks (and batches)."""
+    return all(cov._is_dna(a) for a in [r.ref, *r.alt.split(",")])
+
+
+def tools_window(union, batch=cov.BATCH, seam=TOOLS_SEAM, sv_bases=TOOLS_SV_BASES, widen=TOOLS_WIDEN):
+    """Hold (a)'s region of the union (sorted as squareoff gives it to each
+    sample's annotate_coverage, which batches its walkable records
+    ``batch`` at a time): the fewest records that hold ``seam`` walkable
+    records on each side of a seam between two batches and a walkable
+    record with an allele of at least ``sv_bases`` bases, counting the
+    walkable records the CPU copy needs with them (then the region's
+    records).  Those are the region's records
+    widened ``widen`` bases past their furthest end, and back to the last
+    record at least ``widen`` bases before the region that no earlier
+    record overlaps, so that the donor genome the CPU copy patches equals
+    the card's around every record of the region.  Returns (the region:
+    chrom, from, to, the seam's union index, the SV, counts; the widened
+    records)."""
+    ends, reach_of = [], {}  # the furthest end of any record up to each, by contig
+    for r in union:
+        reach_of[r.chrom] = max(reach_of.get(r.chrom, 0), r.pos + len(r.ref) - 1)
+        ends.append(reach_of[r.chrom])
+    walk = [i for i, r in enumerate(union) if _walkable(r)]
+    svs = [i for i in walk if max(len(a) for a in [union[i].ref, *union[i].alt.split(",")]) >= sv_bases]
+    best = None
+    for k in range(batch, len(walk), batch):
+        for v in svs:
+            lo_i, hi_i = min(walk[k - seam], v), max(walk[min(k + seam, len(walk)) - 1], v)
+            chrom, lo, hi = union[lo_i].chrom, union[lo_i].pos, union[hi_i].pos
+            if union[hi_i].chrom != chrom:
+                continue
+            while lo_i > 0 and union[lo_i - 1].chrom == chrom and union[lo_i - 1].pos == lo:
+                lo_i -= 1
+            last = hi_i + 1
+            while last < len(union) and union[last].chrom == chrom and union[last].pos <= hi:
+                last += 1
+            inside = range(lo_i, last)
+            reach = max(union[i].pos + len(union[i].ref) - 1 for i in inside) + widen
+            first = lo_i
+            while first > 0 and union[first - 1].chrom == chrom and (union[first].pos > lo - widen or ends[first - 1] >= union[first].pos):
+                first -= 1
+            while last < len(union) and union[last].chrom == chrom and union[last].pos <= reach:
+                last += 1
+            cost = (sum(_walkable(r) for r in union[first:last]), len(inside))
+            if best is None or cost < best[0]:
+                sv = union[v]
+                best = (cost, {"chrom": chrom, "from": lo, "to": hi, "seam_index": walk[k], "seam_pos": union[walk[k]].pos,
+                               "sv": {"pos": sv.pos, "ref_bases": len(sv.ref), "alt_bases": max(len(a) for a in sv.alt.split(","))},
+                               "records": len(inside), "widened_from": union[first].pos, "widened_to": reach,
+                               "widened_records": last - first, "cpu_batches": -(-cost[0] // batch)}, union[first:last])
+    if best is None:
+        raise AssertionError(f"tools: no seam between coverage batches of {batch} records with an SV of {sv_bases} bases near it "
+                             f"({len(walk)} walkable records, {len(svs)} SVs)")
+    return best[1], best[2]
+
+
+def tools_region_check(tmp, stores, fa, ped, names, card_vcf, window, widened):
+    """Hold (a): squareoff and then mendelian.annotate_vcf on a CPU copy
+    (BioGraph on the CPU of the same stores) over the ``widened`` records
+    of ``window`` (``tools_window``); its records in the window equal the
+    card's, and every header line but ##source=."""
+    from biograph_tpu_torch.api import BioGraph
+    from biograph_tpu_torch.index.reference import Reference
+    from biograph_tpu_torch.io.vcf import VcfWriter
+    from biograph_tpu_torch.tools import mendelian, squareoff
+    from biograph_tpu_torch.utils.pedigree import Pedigree
+
+    reference = Reference.from_fasta(fa)
+    part = os.path.join(tmp, "leg6_region.vcf")
+    with VcfWriter(part, contigs=[(c.name, c.length) for c in reference.contigs]) as w:
+        for r in widened:
+            w.write(r)
+    bgs, open_s = timed(lambda: [BioGraph(p, device="cpu") for p in stores])
+    sq = os.path.join(tmp, "leg6_region_sq.vcf")
+    with per_sample_coverage([None], names) as samples:
+        _, squareoff_s = timed(lambda: squareoff.squareoff([part], bgs, reference, sq, names))
+    annotated = os.path.join(tmp, "leg6_region_cpu.vcf")
+    mendelian.annotate_vcf(sq, annotated, Pedigree(ped))
+    (card_head, card_rows), (cpu_head, cpu_rows) = vcf_rows(card_vcf), vcf_rows(annotated)
+
+    def inside(rows):
+        return {k: v for k, v in rows.items() if k[0] == window["chrom"] and window["from"] <= k[1] <= window["to"]}
+
+    card_rows, cpu_rows = inside(card_rows), inside(cpu_rows)
+    span = f"{window['chrom']}:{window['from']}-{window['to']}"
+    if card_head != cpu_head or card_rows != cpu_rows or len(card_rows) != window["records"]:
+        bad = sorted(k for k in set(card_rows) | set(cpu_rows) if card_rows.get(k) != cpu_rows.get(k))
+        raise AssertionError(f"tools: the card's annotated VCF differs from the CPU copy's over {span}: header "
+                             f"{'equal' if card_head == cpu_head else 'differs'}, {len(bad)} records, first {bad[:1]}: "
+                             f"{[card_rows.get(k) for k in bad[:1]]} vs {[cpu_rows.get(k) for k in bad[:1]]}")
+    return {"cpu_open_s": open_s, "cpu_squareoff_s": squareoff_s, "cpu_coverage_s": {k: v["seconds"] for k, v in samples.items()}}
+
+
+def coverage_route(kept, name):
+    """The route a sample's coverage took, by the kernels its calls reached
+    (``kept_calls``): rank (probe_ranges) on the general route, chain_fixed
+    on the uniform route without the hash, neither on the hash route."""
+    if (name, "rank") in kept:
+        return "general"
+    return "chain_fixed" if (name, "chain_fixed") in kept else "hash"
+
+
+def tools_cli_checks(tmp, annotated, names):
+    """Hold (d): the cohort tools and vdb through the CLI on the leg's
+    annotated VCF: vdb's vcf import, a study of it and its export square
+    off a sample at a time; vcf_sample_paste of those, which gives the
+    annotated genotypes back; freq_filter, rvg_cleaner and vcf_to_ml_table;
+    the flat vdb ingest, query and export, whose export gives back the
+    ingested sample's records."""
+    from biograph_tpu_torch import cli
+
+    db, flat = os.path.join(tmp, "leg6_vdb"), os.path.join(tmp, "leg6_flat")
+    per = [os.path.join(tmp, f"leg6_{s}.vcf") for s in names]
+    steps = [["vdb", "vcf", "import", "--db", db, annotated], ["vdb", "study", "create", "--db", db, "leg6"],
+             ["vdb", "study", "add", "--db", db, "leg6", "*"]]
+    steps += [["vdb", "study", "export", "--db", db, "leg6", "--square-off", s, "-o", p] for s, p in zip(names, per)]
+    pasted, exported = os.path.join(tmp, "leg6_pasted.vcf"), os.path.join(tmp, "leg6_exported.vcf")
+    steps += [["vcf_sample_paste", *per, "-o", pasted],
+              ["freq_filter", "-v", pasted, "-o", os.path.join(tmp, "leg6_freq.vcf"), "-m", "5", "-i", "2"],
+              ["rvg_cleaner", "-v", annotated, "-o", os.path.join(tmp, "leg6_rvg.vcf")],
+              ["vcf_to_ml_table", annotated, "-o", os.path.join(tmp, "leg6_ml.tsv")],
+              ["vdb", "ingest", "--db", flat, "--vcf", annotated, "--sample", names[0]],
+              ["vdb", "query", "--db", flat, "--sample", names[0], "--limit", "3"],
+              ["vdb", "export", "--db", flat, "--sample", names[0], "--out", exported]]
+    for argv in steps:
+        cli.main(argv)
+    want = sample_gts(annotated)
+    if sample_gts(pasted) != want:
+        raise AssertionError("tools: vcf_sample_paste of the study's square-off exports differs from the annotated genotypes")
+    back = sample_gts(exported)
+    if back != {k: v[:1] for k, v in want.items()}:
+        raise AssertionError(f"tools: vdb export gave {len(back)} records of {names[0]}, the annotated VCF {len(want)}")
+    with open(os.path.join(tmp, "leg6_freq.vcf")) as f:
+        kept = sum(1 for line in f if not line.startswith("#"))
+    return {"commands": len(steps), "exported_records": len(back), "freq_filter_kept": kept}
+
+
+def tools_phase(dev, tmp, stores, vcfs, fa, **window):
+    """Leg 6: ``pvcf_pipe --device <dev>`` through the port's CLI over three
+    stores and their VCFs, cold, each sample's coverage timed and its
+    rank, chain_window and chain_fixed calls kept; holds (a)-(d) (the
+    docstring of this script), (a) over ``tools_window(union, **window)``.
+    Returns (what to print, the kernels' launches in the pvcf_pipe call)."""
+    from biograph_tpu_torch import cli
+    from biograph_tpu_torch.tools import squareoff
+
+    names = list(TOOLS_SAMPLES)
+    ped = os.path.join(tmp, "leg6.ped")
+    with open(ped, "w") as f:
+        f.write(TOOLS_PED)
+    card_vcf = os.path.join(tmp, "leg6_project.vcf")
+    argv = ["pvcf_pipe", "--biographs", *stores, "--vcfs", *vcfs, "-r", fa, "-p", ped, "--samples", *names, "-o", card_vcf, "--device", dev.type]
+    stage = [None]
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    with kept_calls(TOOLS_CALL_SITES, stage) as kept, per_sample_coverage(stage, names) as samples:
+        _, seconds = timed(lambda: cli.main(argv))
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    for name in names:
+        samples[name]["route"] = coverage_route(kept, name)
+    out = {"pvcf_pipe_s": seconds, "samples": samples, "launches": {k: launches[k] for k in TOOLS_KERNELS}}
+    # (b) every kept call against its plain version
+    out["kernel_holds"] = hold_calls(kept, TOOLS_CALL_SITES, "leg 6's")
+    out["kernel_holds_max_abs_err"] = 0
+    del kept
+    # (c) the union and the sample columns
+    union = squareoff.union_records(vcfs)
+    with open(card_vcf) as f:
+        lines = f.read().splitlines()
+    header = next(line for line in lines if line.startswith("#CHROM")).split("\t")
+    body = [line.split("\t", 5) for line in lines if not line.startswith("#")]
+    if header[9:] != names or [(c[0], int(c[1]), c[3], c[4]) for c in body] != [(r.chrom, r.pos, r.ref, r.alt) for r in union]:
+        raise AssertionError(f"tools: {len(body)} records for samples {header[9:]}; union_records gives {len(union)}, the PED {names}")
+    out["union_records"] = len(union)
+    # (a) a region across a batch seam and an SV against a CPU copy
+    out["region"], widened = tools_window(union, **window)
+    held, out["region_s"] = timed(lambda: tools_region_check(tmp, stores, fa, ped, names, card_vcf, out["region"], widened))
+    out["region"].update(held)
+    # (d) the cohort tools and vdb through the CLI
+    out["cli"], out["cli_s"] = timed(lambda: tools_cli_checks(tmp, card_vcf, names))
+    return out, launches
+
 def main():
     global PROFILE
     profile_to = None
@@ -4031,6 +4326,18 @@ def main():
     (formats, formats_launches), seconds = timed(lambda: formats_phase(dev, genome, tmp.name, leg3_bgt))
     say(phase="formats", ok=True, card=card, seconds=seconds, launches={k: v for k, v in formats_launches.items() if v}, **formats)
 
+    # leg 6: the tools through the CLI over leg 1's store and VCF (its
+    # contig renamed to leg 4's FASTA's), leg 3's store with leg 2's VCF and
+    # leg 4's store and discovery VCF
+    stores = [os.path.join(tmp.name, "scaled.bgt"), leg3_bgt, os.path.join(leg4_dir, "sample.bgt")]
+    vcfs = [renamed_contig(os.path.join(tmp.name, "scored.vcf"), os.path.join(tmp.name, "scored_chr1.vcf"), "chr", SV_CHROM),
+            os.path.join(tmp.name, "trimmed.vcf"), os.path.join(leg4_dir, "analysis", "discovery.vcf")]
+    (tools, tools_launches), seconds = timed(lambda: tools_phase(dev, tmp.name, stores, vcfs, leg4_fa))
+    missing = [k for k in COVERAGE_KERNELS if tools_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"tools: pvcf_pipe launched no {missing} kernel (coverage's general route)")
+    say(phase="tools", ok=True, card=card, seconds=seconds, **tools)
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
@@ -4048,6 +4355,7 @@ def main():
         r["launches_merge"] = merge_launches[r["name"]]
         r["launches_pipeline"] = pipeline_launches[r["name"]]
         r["launches_formats"] = formats_launches[r["name"]]
+        r["launches_tools"] = tools_launches[r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:
