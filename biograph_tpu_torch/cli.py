@@ -19,8 +19,12 @@ The tool subcommands ``squareoff`` and ``pvcf_pipe`` (each sample's store
 on ``--device``), ``vcf_sample_paste``, ``freq_filter``, ``rvg_cleaner``,
 ``vcf_to_ml_table``, ``mendelian`` and ``vdb`` (the flat ``ingest``,
 ``list``, ``query``, ``export`` and the ``vcf``, ``anno`` and ``study``
-groups) print the JAX package's summaries.  Only ``discovery --dist-dir``
-waits, for ``parallel/discovery.py``.
+groups) print the JAX package's summaries.  ``discovery --dist-dir DIR``
+runs one process a card: each is started with the same arguments and its
+own ``--process-id`` (``--coordinator``, ``--num-processes``: the JAX
+package reads these from ``BGT_*`` variables), the wavefront region-sharded
+and the SV pass read-sliced through ``parallel/discovery.py``, and process 0
+writes the outputs.
 
 Stage timings are read after the device has finished the stage.
 """
@@ -353,8 +357,6 @@ def _discovery_assemble(args, ref, dev):
 
     if not args.biograph:
         raise SystemExit("--mode assemble requires --biograph <dir.bgt>")
-    if args.dist_dir:
-        raise NotImplementedError("discovery --dist-dir needs parallel/discovery.py, which is not ported yet")
     bg = BioGraph(args.biograph, device=dev)
     opt = DiscoverOptions(min_alt_support=args.min_depth)
     applied = apply_options(opt, args.opt)
@@ -372,6 +374,11 @@ def _discovery_assemble(args, ref, dev):
         from biograph_tpu_torch.variants.iterate import discover_variants_iterative
 
         recs = discover_variants_iterative(bg.seqset, ref, opt=opt, readmap=bg.readmap, max_rounds=args.iterate, region=region, stats=stats)
+    elif args.dist_dir:
+        # region-sharded over the run's processes (parallel/discovery.py)
+        from biograph_tpu_torch.parallel.discovery import discover_variants_distributed
+
+        recs = discover_variants_distributed(bg.seqset, ref, args.dist_dir, region=region, opt=opt, readmap=bg.readmap, stats=stats)
     else:
         asm_dump = [] if args.assemblies_out else None
         recs = discover_variants(bg.seqset, ref, region=region, opt=opt, readmap=bg.readmap, out_assemblies=asm_dump, stats=stats)
@@ -386,8 +393,14 @@ def _discovery_assemble(args, ref, dev):
 
         t0 = time.time()
         sv_stats = stats.setdefault("sv", {})
-        codes, lens, mate = reads_from_readmap(bg.readmap)
-        sv_all = discover_structural(ref, codes, lens, mate_of=mate, device=dev, stats=sv_stats)
+        if args.dist_dir:
+            # the read scan split over the processes, the finalize on each
+            from biograph_tpu_torch.parallel.discovery import discover_structural_distributed
+
+            sv_all = discover_structural_distributed(bg.readmap, ref, args.dist_dir)
+        else:
+            codes, lens, mate = reads_from_readmap(bg.readmap)
+            sv_all = discover_structural(ref, codes, lens, mate_of=mate, device=dev, stats=sv_stats)
         seen = {(r["chrom"], r["pos"], r["ref"], r["alt"]) for r in recs}
         sv = [
             r for r in sv_all
@@ -402,6 +415,38 @@ def _discovery_assemble(args, ref, dev):
     return recs, opt, stats
 
 
+def _discovery_assemble_out(args, ref, dev, t0, writes=True):
+    """discovery --mode assemble with its outputs: --exclude, --stats and the
+    VCF.  A process of a distributed run other than process 0 computes the
+    same records and writes nothing."""
+    from biograph_tpu_torch.variants.discover import write_discovery_vcf
+
+    recs, opt, stats = _discovery_assemble(args, ref, dev)
+    n_wave, n_sv = stats["n_wavefront"], stats["n_sv"]
+    if args.exclude:
+        excl = _load_bed(ref, args.exclude)
+        n0 = len(recs)
+
+        def flat_span(r):
+            start = ref.contig_by_name(r["chrom"]).start + r["pos"] - 1
+            return start, start + max(len(r["ref"]), 1)
+
+        recs = [r for r in recs if not _flat_overlaps(excl, *flat_span(r))]
+        if n0 != len(recs):
+            print(f"exclude: dropped {n0 - len(recs)} calls in {args.exclude}")
+    if not writes:
+        return
+    if args.stats:
+        # engine counters and per-stage seconds (bgbinary --stats,
+        # modules/io/runtime_stats.h:14-50)
+        stats["stage_s"] = {k: round(v, 3) for k, v in stats.get("stage_s", {}).items()}
+        with open(args.stats, "w") as f:
+            json.dump(stats, f, indent=1, default=int)
+    excluded = f" -> {len(recs)} after exclusion" if len(recs) != n_wave + n_sv else ""
+    print(f"discovery: {n_wave} assembled + {n_sv} SV records{excluded} ({time.time()-t0:.1f}s)")
+    write_discovery_vcf(args.out, ref, recs, sample=args.sample, opt=opt)
+
+
 def cmd_discovery(args):
     """reads or .bgt + reference -> VCF.
     (reference: bgbinary discovery, modules/biograph/biograph_variants.cpp)
@@ -413,31 +458,16 @@ def cmd_discovery(args):
     dev = resolve_device(args.device)
     ref = _load_reference(args.ref)
     t0 = time.time()
-    if args.mode == "assemble":
-        from biograph_tpu_torch.variants.discover import write_discovery_vcf
+    if args.mode == "assemble" and args.dist_dir:
+        from biograph_tpu_torch.parallel.distributed import initialize, shutdown
 
-        recs, opt, stats = _discovery_assemble(args, ref, dev)
-        n_wave, n_sv = stats["n_wavefront"], stats["n_sv"]
-        if args.exclude:
-            excl = _load_bed(ref, args.exclude)
-            n0 = len(recs)
-
-            def flat_span(r):
-                start = ref.contig_by_name(r["chrom"]).start + r["pos"] - 1
-                return start, start + max(len(r["ref"]), 1)
-
-            recs = [r for r in recs if not _flat_overlaps(excl, *flat_span(r))]
-            if n0 != len(recs):
-                print(f"exclude: dropped {n0 - len(recs)} calls in {args.exclude}")
-        if args.stats:
-            # engine counters and per-stage seconds (bgbinary --stats,
-            # modules/io/runtime_stats.h:14-50)
-            stats["stage_s"] = {k: round(v, 3) for k, v in stats.get("stage_s", {}).items()}
-            with open(args.stats, "w") as f:
-                json.dump(stats, f, indent=1, default=int)
-        excluded = f" -> {len(recs)} after exclusion" if len(recs) != n_wave + n_sv else ""
-        print(f"discovery: {n_wave} assembled + {n_sv} SV records{excluded} ({time.time()-t0:.1f}s)")
-        write_discovery_vcf(args.out, ref, recs, sample=args.sample, opt=opt)
+        ctx = initialize(args.coordinator, args.num_processes, args.process_id, device=dev)
+        try:
+            _discovery_assemble_out(args, ref, ctx.device, t0, writes=ctx.process_id == 0)
+        finally:
+            shutdown(ctx)
+    elif args.mode == "assemble":
+        _discovery_assemble_out(args, ref, dev, t0)
     elif args.mode == "golden-parity":
         from biograph_tpu_torch.io.fastq import read_fastq
         from biograph_tpu_torch.variants.golden_parity import golden_parity_calls, write_golden_parity_vcf
@@ -1170,7 +1200,12 @@ def main(argv=None):
                     help="engine knob override (any DiscoverOptions field; repeatable)")
     pd.add_argument("--stats", metavar="JSON", help="write engine counters and per-stage seconds here")
     pd.add_argument("--dist-dir", metavar="DIR",
-                    help="shared run dir of region-sharded multi-process discovery (needs parallel/discovery.py)")
+                    help="shared run dir of region-sharded multi-process discovery: start one process a card, "
+                         "each with the same arguments and its own --process-id")
+    pd.add_argument("--coordinator", default="localhost:12421", metavar="HOST:PORT",
+                    help="with --dist-dir: the rendezvous address of process 0")
+    pd.add_argument("--num-processes", type=int, default=1, metavar="N", help="with --dist-dir: the processes of the run")
+    pd.add_argument("--process-id", type=int, default=0, metavar="I", help="with --dist-dir: this process's rank, 0..N-1")
     pd.add_argument("--assemblies-out", metavar="CSV", help="dump the scored wavefront assemblies to this CSV")
     pd.add_argument("--exclude", metavar="BED", help="drop calls overlapping these regions")
     _device_arg(pd)

@@ -186,8 +186,110 @@ class Seqset:
         return ss
 
 
+class _WidenFamily:
+    """The widen family over nearest-shared-below searches: the rules of
+    ``truncate_ranges`` and ``push_front_drop``, written once over the reads
+    a query engine supplies.  ``_lt_back(pos, c)`` is the largest j < pos
+    with shared[j] < c (-1 if none), ``_lt_fwd(pos, c)`` the smallest j > pos
+    (n if none), ``_shared_at`` and ``_size_at`` gather ``shared`` and the
+    entry sizes, ``_rank_ends`` ranks both ends of ranges; the engine also
+    has ``fixed``, ``n_entries`` and ``_t``.  ``_SeqsetDevice`` answers them
+    from its own tensors, the entry-sharded engine
+    (``parallel/sharded_seqset.py``) with one collective each.  Every
+    branch of ``push_front_drop``'s loop reads values that are the same on
+    every process of a sharded run, so all processes make the same
+    collectives in the same order."""
+
+    def _widen(self, begin, end, size):
+        """Expand [begin, end) to the maximal run where shared >= size: the
+        largest j <= begin and the smallest j >= end with shared[j] < size
+        (n if none)."""
+        nb = self._lt_back(begin + 1, size).clamp(min=0)
+        ne = self._lt_fwd(end - 1, size)
+        return nb, ne
+
+    def truncate_ranges(self, r: SeqsetRanges, new_size) -> SeqsetRanges:
+        """Shorten each lane's sequence to new_size bases, widening the range
+        to every entry sharing that prefix.  Lanes already <= new_size pass
+        through unchanged."""
+        new_size = self._t(new_size, torch.int32).expand(r.size.shape)
+        need = r.size > new_size
+        tgt = torch.where(need, new_size, r.size)
+        nb, ne = self._widen(r.begin, r.end, tgt.clamp(min=1))
+        return SeqsetRanges(
+            begin=torch.where(need, nb, r.begin),
+            end=torch.where(need, ne, r.end),
+            size=tgt,
+        )
+
+    def push_front_drop(self, r: SeqsetRanges, b, min_ctx=0) -> SeqsetRanges:
+        """Push base b onto each lane's sequence; where the result would be
+        empty (or a lone too-short entry), drop context, widening the range
+        to a shorter shared suffix through nearest-shared-below searches,
+        until the push succeeds.  Lanes whose context would fall below
+        ``min_ctx`` come back invalid, as (0, 0, 0)."""
+        b = self._t(b, torch.int64).contiguous()
+        n = self.n_entries
+        fixed_b = self.fixed[b]
+        # updated in place below: copies, never the caller's tensors
+        o_begin, o_end = r.begin.clone(), r.end.clone()
+        o_ctx = r.size.to(torch.int32, copy=True)
+        min_ctx = self._t(min_ctx, torch.int32).expand(b.shape)
+        sub_b, sub_e = self._rank_ends(b, o_begin, o_end)
+        dead = (o_ctx < min_ctx) | (o_begin >= o_end)
+
+        def need_drop(fixed_b, sub_b, sub_e, o_ctx):
+            first = (fixed_b + sub_b).clamp(0, n - 1)
+            lone_short = (sub_b + 1 == sub_e) & (self._size_at(first) < o_ctx + 1)
+            return (sub_b == sub_e) | lone_short
+
+        done = dead | ~need_drop(fixed_b, sub_b, sub_e, o_ctx)
+        # one iteration drops context once on the lanes not yet done (a done
+        # lane is frozen, so the rest need not be computed); the loop ends
+        # when every lane is done
+        while True:
+            act = torch.nonzero(~done)[:, 0]
+            if act.shape[0] == 0:
+                break
+            fb, bb, ob, oe, oc, sb, se = (
+                x[act] for x in (fixed_b, b, o_begin, o_end, o_ctx, sub_b, sub_e)
+            )
+            first = (fb + sb).clamp(0, n - 1)
+            sh_b, sh_e = self._shared_at(torch.stack([ob, oe]).clamp(0, n - 1))
+            drop = torch.maximum(sh_b, torch.where(oe >= n, 0, sh_e)).to(torch.int32)
+            drop = torch.where(sb != se, torch.maximum(drop, self._size_at(first) - 1), drop)
+            upd_b = (ob > 0) & (sh_b >= drop)
+            upd_e = (oe < n) & (sh_e >= drop)
+            nb = self._lt_back(torch.where(upd_b, ob, 1), drop).clamp(min=0)
+            ne = self._lt_fwd(torch.where(upd_e, oe, n - 1), drop)
+            newly_dead = (drop < min_ctx[act]) | ~(upd_b | upd_e | (drop != oc))
+            ob2 = torch.where(upd_b, nb, ob)
+            oe2 = torch.where(upd_e, ne, oe)
+            rb, re = self._rank_ends(bb, ob2, oe2)
+            sb2 = torch.where(upd_b, rb, sb)
+            se2 = torch.where(upd_e, re, se)
+            still = need_drop(fb, sb2, se2, drop)
+            dead[act] = newly_dead
+            done[act] = newly_dead | ~still
+            keep = ~newly_dead
+            o_begin[act] = torch.where(keep, ob2, ob)
+            o_end[act] = torch.where(keep, oe2, oe)
+            o_ctx[act] = torch.where(keep, drop, oc)
+            sub_b[act] = torch.where(keep, sb2, sb)
+            sub_e[act] = torch.where(keep, se2, se)
+        new_begin = fixed_b + sub_b
+        new_end = fixed_b + sub_e
+        kick = (new_begin < new_end) & (self._size_at(new_begin.clamp(0, n - 1)) < o_ctx + 1)
+        new_begin = new_begin + kick.to(new_begin.dtype)
+        return SeqsetRanges(
+            begin=torch.where(dead, 0, new_begin),
+            end=torch.where(dead, 0, new_end),
+            size=torch.where(dead, 0, o_ctx + 1),
+        )
+
+
 @dataclass(frozen=True)
-class _SeqsetDevice:
+class _SeqsetDevice(_WidenFamily):
     """Batched query engine over the seqset's tensors.  The rank structure
     is here in one form only, the rank-block table."""
 
@@ -336,30 +438,19 @@ class _SeqsetDevice:
             cur = self.entry_pop_front(cur)
         return out
 
-    # -- the widen family: nearest-shared-below searches (LtSearch) --
+    # -- the widen family's reads (``_WidenFamily``) --
 
-    def _widen(self, begin, end, size):
-        """Expand [begin, end) to the maximal run where shared >= size: the
-        largest j <= begin and the smallest j >= end with shared[j] < size
-        (n if none)."""
-        lt = self.shared_lt
-        nb = lt.next_backward_lt(begin + 1, size).clamp(min=0)
-        ne = lt.next_forward_lt(end - 1, size)
-        return nb, ne
+    def _lt_back(self, pos, c):
+        return self.shared_lt.next_backward_lt(pos, c)
 
-    def truncate_ranges(self, r: SeqsetRanges, new_size) -> SeqsetRanges:
-        """Shorten each lane's sequence to new_size bases, widening the range
-        to every entry sharing that prefix.  Lanes already <= new_size pass
-        through unchanged."""
-        new_size = self._t(new_size, torch.int32).expand(r.size.shape)
-        need = r.size > new_size
-        tgt = torch.where(need, new_size, r.size)
-        nb, ne = self._widen(r.begin, r.end, tgt.clamp(min=1))
-        return SeqsetRanges(
-            begin=torch.where(need, nb, r.begin),
-            end=torch.where(need, ne, r.end),
-            size=tgt,
-        )
+    def _lt_fwd(self, pos, c):
+        return self.shared_lt.next_forward_lt(pos, c)
+
+    def _shared_at(self, idx):
+        return self.shared[idx]
+
+    def _size_at(self, idx):
+        return self.entry_sizes[idx]
 
     def pop_front_ranges(self, r: SeqsetRanges) -> SeqsetRanges:
         """Drop the first base of each lane's sequence and widen to all
@@ -374,72 +465,6 @@ class _SeqsetDevice:
             begin=torch.where(empty, 0, nb),
             end=torch.where(empty, self.n_entries, ne),
             size=new_size.clamp(min=0),
-        )
-
-    def push_front_drop(self, r: SeqsetRanges, b, min_ctx=0) -> SeqsetRanges:
-        """Push base b onto each lane's sequence; where the result would be
-        empty (or a lone too-short entry), drop context, widening the range
-        to a shorter shared suffix through nearest-shared-below searches,
-        until the push succeeds.  Lanes whose context would fall below
-        ``min_ctx`` come back invalid, as (0, 0, 0)."""
-        b = self._t(b, torch.int64).contiguous()
-        n = self.n_entries
-        fixed_b = self.fixed[b]
-        # updated in place below: copies, never the caller's tensors
-        o_begin, o_end = r.begin.clone(), r.end.clone()
-        o_ctx = r.size.to(torch.int32, copy=True)
-        min_ctx = self._t(min_ctx, torch.int32).expand(b.shape)
-        sub_b, sub_e = self._rank_ends(b, o_begin, o_end)
-        dead = (o_ctx < min_ctx) | (o_begin >= o_end)
-
-        def need_drop(fixed_b, sub_b, sub_e, o_ctx):
-            first = (fixed_b + sub_b).clamp(0, n - 1)
-            lone_short = (sub_b + 1 == sub_e) & (self.entry_sizes[first] < o_ctx + 1)
-            return (sub_b == sub_e) | lone_short
-
-        done = dead | ~need_drop(fixed_b, sub_b, sub_e, o_ctx)
-        # one iteration drops context once on the lanes not yet done (a done
-        # lane is frozen, so the rest need not be computed); the loop ends
-        # when every lane is done
-        while True:
-            act = torch.nonzero(~done)[:, 0]
-            if act.shape[0] == 0:
-                break
-            fb, bb, ob, oe, oc, sb, se = (
-                x[act] for x in (fixed_b, b, o_begin, o_end, o_ctx, sub_b, sub_e)
-            )
-            first = (fb + sb).clamp(0, n - 1)
-            sh_b = self.shared[ob.clamp(0, n - 1)]
-            sh_e = self.shared[oe.clamp(0, n - 1)]
-            drop = torch.maximum(sh_b, torch.where(oe >= n, 0, sh_e)).to(torch.int32)
-            drop = torch.where(sb != se, torch.maximum(drop, self.entry_sizes[first] - 1), drop)
-            upd_b = (ob > 0) & (sh_b >= drop)
-            upd_e = (oe < n) & (sh_e >= drop)
-            nb = self.shared_lt.next_backward_lt(torch.where(upd_b, ob, 1), drop).clamp(min=0)
-            ne = self.shared_lt.next_forward_lt(torch.where(upd_e, oe, n - 1), drop)
-            newly_dead = (drop < min_ctx[act]) | ~(upd_b | upd_e | (drop != oc))
-            ob2 = torch.where(upd_b, nb, ob)
-            oe2 = torch.where(upd_e, ne, oe)
-            rb, re = self._rank_ends(bb, ob2, oe2)
-            sb2 = torch.where(upd_b, rb, sb)
-            se2 = torch.where(upd_e, re, se)
-            still = need_drop(fb, sb2, se2, drop)
-            dead[act] = newly_dead
-            done[act] = newly_dead | ~still
-            keep = ~newly_dead
-            o_begin[act] = torch.where(keep, ob2, ob)
-            o_end[act] = torch.where(keep, oe2, oe)
-            o_ctx[act] = torch.where(keep, drop, oc)
-            sub_b[act] = torch.where(keep, sb2, sb)
-            sub_e[act] = torch.where(keep, se2, se)
-        new_begin = fixed_b + sub_b
-        new_end = fixed_b + sub_e
-        kick = (new_begin < new_end) & (self.entry_sizes[new_begin.clamp(0, n - 1)] < o_ctx + 1)
-        new_begin = new_begin + kick.to(new_begin.dtype)
-        return SeqsetRanges(
-            begin=torch.where(dead, 0, new_begin),
-            end=torch.where(dead, 0, new_end),
-            size=torch.where(dead, 0, o_ctx + 1),
         )
 
     def _rank_ends(self, b, begin, end):

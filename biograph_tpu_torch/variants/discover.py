@@ -49,8 +49,12 @@ prescreened lane); its CPU route (the rolling-hash filter and the push4
 pre-gate) gives the same anchors.  Scoring takes the JAX package's
 accelerator form, one padded coverage batch, on every device.
 
-The sharded engine is not ported (the port has no ``engine`` argument), nor
-are the walk engines of the JAX package's front end.  The JAX package's
+With ``engine=`` (``parallel/sharded_discovery.ShardedDiscoveryEngine``) the
+seqset is sharded by entry range over the processes of a run: the dense
+front end (its step-by-step chains), the trunc tables always, the engine's
+shard-local device in place of ``Seqset.d`` in every seqset query, and the
+readmap's scoring and pair gate local.  The walk engines of the JAX
+package's front end are not ported.  The JAX package's
 block, chunk, interleaved and whole-device wavefront dispatch loops are
 replaced by one host loop with done-lane compaction.  Its environment
 switches are module constants here: ``NO_PRESCREEN`` (``BGT_NO_PRESCREEN``)
@@ -182,7 +186,7 @@ class _StageClock:
 # ---------------------------------------------------------------------------
 
 
-def _discovery_memory_plan(ss: Seqset, G: int, stats: dict | None = None):
+def _discovery_memory_plan(ss: Seqset, G: int, stats: dict | None = None, engine=None):
     """Budget discovery's device-resident working set: the seqset core, the
     prescreen bitmap, the doubled reference, the two n-entry trunc tables
     and the shared rejoin span table, against ``BUDGET_BYTES`` or else half
@@ -193,27 +197,34 @@ def _discovery_memory_plan(ss: Seqset, G: int, stats: dict | None = None):
     built it yet) and the stored rank pair where it lies there too.  Over
     budget the shared span table shrinks or goes first (groups then build
     their own bounded tables), then the trunc tables, and the wavefront
-    truncates through the LtSearch.  The plan is recorded in
+    truncates through the LtSearch.  With a sharded ``engine`` the core is
+    this process's shards, the trunc tables its shards of them, and the
+    engine uses them whatever the plan.  The plan is recorded in
     stats["memory_plan"]."""
+    dev = engine.device if engine is not None else ss.device
     if BUDGET_BYTES is not None:
         budget = BUDGET_BYTES
-    elif ss.device.type == "cuda":
-        budget = torch.cuda.mem_get_info(ss.device)[1] // 2
+    elif dev.type == "cuda":
+        budget = torch.cuda.mem_get_info(dev)[1] // 2
     else:
         budget = 4 << 30
     n = int(ss.n_entries)
-    d = ss.d
-    held = [d.fixed, d.rank_blocks, d.entry_sizes, d.shared, d.pop_sel]
-    held += [t for t in (ss.prev_words, ss.prev_cum) if t.device == ss.device]
-    core = sum(t.numel() * t.element_size() for t in held)
-    # the LtSearch: padded values, block minima, the walk's two level tables
-    nblk = -(-n // LT_BLOCK)
-    core += 4 * (nblk * LT_BLOCK + nblk + 2 * nblk * ((nblk - 1).bit_length() + 1))
-    core += 1 << (2 * _PRESCREEN_K)  # the prescreen bitmap, one byte a k-mer
+    if engine is not None:
+        core = engine.d.nbytes()
+        trunc = 16 * engine.Re * len(engine.shards)
+    else:
+        d = ss.d
+        held = [d.fixed, d.rank_blocks, d.entry_sizes, d.shared, d.pop_sel]
+        held += [t for t in (ss.prev_words, ss.prev_cum) if t.device == ss.device]
+        core = sum(t.numel() * t.element_size() for t in held)
+        # the LtSearch: padded values, block minima, the walk's two level tables
+        nblk = -(-n // LT_BLOCK)
+        core += 4 * (nblk * LT_BLOCK + nblk + 2 * nblk * ((nblk - 1).bit_length() + 1))
+        core += 1 << (2 * _PRESCREEN_K)  # the prescreen bitmap, one byte a k-mer
+        trunc = 16 * n  # prev_lt + next_lt, int64 each
     ref2 = 2 * G  # doubled fwd++rc reference, uint8
-    trunc = 16 * n  # prev_lt + next_lt, int64 each
     head = budget - core - ref2
-    use_trunc = head >= trunc
+    use_trunc = head >= trunc or engine is not None
     span_budget = head - (trunc if use_trunc else 0)
     span_cap = min(SPAN_TABLE_CAP, max(span_budget // 16, 0))
     if span_cap < 16384:  # smallest ladder rung: shared table off
@@ -434,7 +445,14 @@ def _dense_probes(d, ref2_dev, batches, P: int, opt, clock):
        lane whose longest window is shorter cannot pass the anchor gate,
        and its chain state stands);
     4-5. the exact bisection (``probe_exact_kernel``) on the survivors,
-       scattered back into the batch's state."""
+       scattered back into the batch's state.
+
+    An engine without the rank-block table (the sharded engine's device)
+    runs the filter and the bisection as step-by-step chains."""
+    if getattr(d, "rank_blocks", None) is not None:
+        find_window, probe_exact = probes.find_window_auto, probes.probe_exact_kernel
+    else:
+        find_window, probe_exact = probes.find_window, probes.probe_exact
     probe_h = [
         list(probes.probe_ranges(d, ref2_dev, p0, ctx_lo, P, opt.probe_ctx))
         for _, ctx_lo, p0, _, _ in batches
@@ -454,13 +472,13 @@ def _dense_probes(d, ref2_dev, batches, P: int, opt, clock):
             p0 = batches[i][2]
             idx = torch.from_numpy(np.nonzero(rst)[0]).to(ref2_dev.device)
             pos = idx + p0
-            filt[i] = (idx, pos, probes.find_window_auto(d, ref2_dev, pos, opt.min_anchor_ctx, opt.probe_ctx))
+            filt[i] = (idx, pos, find_window(d, ref2_dev, pos, opt.min_anchor_ctx, opt.probe_ctx))
     clock.mark("probe_filter")
     for i, (idx, pos, (fb, fe, fs)) in filt.items():
         sel = torch.nonzero(fb < fe)[:, 0]
         if sel.shape[0] == 0:
             continue
-        b2, e2, s2 = probes.probe_exact_kernel(
+        b2, e2, s2 = probe_exact(
             d, ref2_dev, pos[sel], batches[i][1], opt.probe_ctx,
             opt.min_anchor_ctx, (fb[sel], fe[sel], fs[sel]),
         )
@@ -471,14 +489,14 @@ def _dense_probes(d, ref2_dev, batches, P: int, opt, clock):
     return [h[:3] for h in probe_h]
 
 
-def _dense_anchors(ss, ref2_dev, segments, opt, stats, clock, lo: int, hi: int):
+def _dense_anchors(d, ref2_dev, segments, opt, stats, clock, lo: int, hi: int):
     """The dense front end, for ``not use_prescreen(opt)``: waves 1-5 over
     every position of every segment (``_dense_probes``), then the anchor
     scan batch by batch, at most MAXA anchors a batch.  Returns the
     anchors' numpy columns (pos, alt base, begin, end, size) by orientation
     (False the forward half, True the reverse-complement half), each
-    (pos, base) once."""
-    d = ss.d
+    (pos, base) once.  d: the query engine (``Seqset.d``, or a sharded
+    engine's device)."""
     batches, P = _dense_batches(segments, opt, lo, hi)
     probed = _dense_probes(d, ref2_dev, batches, P, opt, clock)
     anchor_parts: dict = {}
@@ -784,6 +802,9 @@ def _drive(d, c, trunc_tables, stats=None) -> None:
             c["step"] += 1
         if c["step"] >= c["MAXP"]:
             break
+        # on a sharded engine every process must stop and compact at the
+        # same step, or their collectives no longer pair up: "done" is built
+        # from all-reduced ranges only, so it is the same on every process
         undone = int((~c["st"]["done"]).sum())
         if undone == 0:
             break
@@ -931,6 +952,7 @@ def wavefront_assemble(
     ref_limit: int | None = None,
     span_cap: int = SPAN_TABLE_CAP,
     trunc: bool = True,
+    engine=None,
 ) -> List[Assembly]:
     """Extend alt branches through the seqset; rejoin to reference.
 
@@ -942,14 +964,18 @@ def wavefront_assemble(
     dense span table when it is smaller.  span_cap: the most rows a shared
     dense table may have (the memory plan's ``span_table_cap``).  trunc:
     the plan's ``use_trunc_tables``; without them each beam step truncates
-    through ``truncate_ranges``."""
-    d = ss.d
+    through ``truncate_ranges``.  engine: a sharded engine, whose device
+    and entry-sharded trunc tables take the place of the seqset's."""
+    d = ss.d if engine is None else engine.d
     n_anchor = len(anchors[0])
     if n_anchor == 0:
         return []
     if ref_limit is None:
         ref_limit = ref_dev.shape[0]
-    trunc_tables = _trunc_tables(ss, opt.probe_ctx) if trunc else (None, None)
+    if engine is not None:
+        trunc_tables = engine.trunc_tables(opt.probe_ctx)
+    else:
+        trunc_tables = _trunc_tables(ss, opt.probe_ctx) if trunc else (None, None)
 
     # group anchors by genome position; the (K, key2) span table puts no
     # limit on a group's genome span, so groups are sized by lane count only
@@ -1079,9 +1105,10 @@ def discover_variants(
     readmap=None,
     stats: dict | None = None,
     out_assemblies: list | None = None,
+    engine=None,
 ):
     """Top-level entry point: prescreen -> anchors -> wavefront -> variants, on
-    the device the seqset lies on.
+    the device the seqset lies on, or with ``engine`` on the engine's.
 
     reference: an ``index.reference.Reference`` (``flat`` codes and
     ``contigs``).  region: (flat_start, flat_end) or None for the whole
@@ -1096,17 +1123,20 @@ def discover_variants(
     dense front end also ``probe_dispatch`` and ``probe_masks``, each read
     after the device has drained.  out_assemblies: optional list; the
     deduped (with a readmap: scored and gated) Assembly records are
-    appended to it.
+    appended to it.  engine: a ``parallel.sharded_discovery.
+    ShardedDiscoveryEngine`` over ``ss``; every process of its run makes the
+    same call, and the seqset queries run over its entry-sharded structure
+    (the dense front end, the trunc tables always) with the same records.
 
     Returns the records (dicts of chrom, pos, ref, alt, support,
     ref_support, aid), sorted by position.  Without a readmap ``support`` is
     the narrowest range along the alt path and ``ref_support`` is 0."""
     opt = opt or DiscoverOptions()
-    dev = ss.device
+    dev = ss.device if engine is None else engine.device
     if readmap is not None and readmap.device != dev:
         raise ValueError(
             f"discover_variants: the readmap lies on {readmap.device}, the "
-            f"seqset on {dev}"
+            f"{'seqset' if engine is None else 'engine'} on {dev}"
         )
     ref = np.asarray(reference.flat)
     G = len(ref)
@@ -1116,17 +1146,18 @@ def discover_variants(
     stats.setdefault("anchors_found", 0)
     stats.setdefault("anchors_truncated", 0)
     stats.setdefault("assemblies_truncated", 0)
-    plan = _discovery_memory_plan(ss, G, stats)
+    plan = _discovery_memory_plan(ss, G, stats, engine)
     ref2 = np.concatenate([ref, (3 - ref[::-1]).astype(np.uint8)])
-    ref2_dev = torch.from_numpy(ref2).to(dev)
+    ref2_dev = engine.replicate(ref2) if engine is not None else torch.from_numpy(ref2).to(dev)
     segments = _segments(opt, lo, hi, G)
     if not segments:
         return []
     clock = _StageClock(dev, stats.setdefault("stage_s", {}))
-    if use_prescreen(opt):
+    if engine is None and use_prescreen(opt):
         anchor_parts, hit_pos = _find_anchors(ss, ref2_dev, segments, opt, stats, clock, G)
     else:
-        anchor_parts, hit_pos = _dense_anchors(ss, ref2_dev, segments, opt, stats, clock, lo, hi), None
+        d = ss.d if engine is None else engine.d
+        anchor_parts, hit_pos = _dense_anchors(d, ref2_dev, segments, opt, stats, clock, lo, hi), None
     # wavefront, once per orientation over its pooled anchors
     all_asms: List[Assembly] = []
     for rev_half, anchors in anchor_parts.items():
@@ -1135,6 +1166,7 @@ def discover_variants(
             ref_limit=(2 * G if rev_half else G),
             span_cap=plan["span_table_cap"],
             trunc=plan["use_trunc_tables"],
+            engine=engine,
         )
         if rev_half:
             asms = [

@@ -142,6 +142,21 @@ held to squareoff and ``mendelian.annotate_vcf`` on a CPU copy of the
 three stores, given those records and their neighbours 2 kb either side
 (one coverage batch a sample); the cohort tools and vdb run through the CLI on the
 annotated VCF, and vdb's export gives the ingested sample's records back.
+Leg 7 (``sharded``) is the seqset sharded by entry range: one rank of an
+NCCL process group (a FileStore in the run's temp dir) holds the scaled
+store cut into 4 entry shards, and ``discover_variants(engine=
+ShardedDiscoveryEngine(...))`` runs with the readmap over 250 kb of the
+genome, cold and warm: its records must equal the single device's by the
+dense front end and by the prescreen and ``discover_variants_distributed``
+at one rank; the engine's rank, rank4, gather_sizes and rank_cum calls of
+the build and the cold call are kept, first and widest, and held against
+their plain versions, and the all_reduce calls are counted and timed; the
+committed records more than 1 kb inside the region that the call
+reproduces are printed.  push_front for the four bases and truncate at
+three targets on 4096 ranges from find, and the 40-step drop walk of 4096
+lanes along the genome, equal the single device in every lane;
+``sharded_pileup_step`` on a (2, 4) mesh of the rank's shards equals its
+CPU copy.
 Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
@@ -158,7 +173,8 @@ time and its heaviest kernels go to OUT.json; the ``kernels`` and
 kernels.  The ``kernels`` line's ``launches_*`` columns are each kernel's
 launches in each leg's counted run (``launches_pipeline``: leg 4's cold
 ``full_pipeline``; ``launches_formats``: the whole of leg 5;
-``launches_tools``: leg 6's ``pvcf_pipe``).
+``launches_tools``: leg 6's ``pvcf_pipe``; ``launches_sharded``: leg 7's
+engine build and cold call).
 """
 
 from __future__ import annotations
@@ -4206,6 +4222,201 @@ def tools_phase(dev, tmp, stores, vcfs, fa, **window):
     out["cli"], out["cli_s"] = timed(lambda: tools_cli_checks(tmp, card_vcf, names))
     return out, launches
 
+# ---------------------------------------------------------------------------
+# leg 7: the entry-sharded seqset and discovery engine over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_SHARDS = 4  # entry shards, all on the one rank
+SHARDED_REGION = (1_000_000, 1_250_000)  # of the scaled genome
+SHARDED_LANES = 4096
+SHARDED_DROP_STEPS = 40
+SHARDED_TRUNC = (3, 8, 11)
+SHARDED_INSIDE = 1000  # a committed record counts as inside the region this far from its ends
+PILEUP_K, PILEUP_READS = 16, 1 << 15
+SHARDED_KERNELS = ("rank", "rank4", "gather_sizes", "rank_cum")
+# the kernels the engine calls (see PIPELINE_CALL_SITES), by the names it
+# calls them by
+SHARDED_CALL_SITES = {
+    "rank": PIPELINE_CALL_SITES["rank"],
+    "rank4": ("biograph_tpu_torch.ops.rank4", "rank4", rank4_ops.rank4_blocks_plain, (0,), 1),
+    "gather_sizes": ("biograph_tpu_torch.ops.rank4", "gather_sizes", rank4_ops.gather_sizes_plain, (0,), 1),
+    "rank_cum": ("biograph_tpu_torch.parallel.sharded_seqset", "rank_cum", rank_cum_ops.rank_cum_plain, (), 0),
+}
+
+
+@contextlib.contextmanager
+def counted_all_reduce():
+    """While the block runs, torch.distributed.all_reduce counts its calls
+    and their seconds, the device drained before and after each: yields
+    {"calls", "seconds"}."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+    seen = {"calls": 0, "seconds": 0.0}
+
+    def counted(t, *args, **kw):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = real(t, *args, **kw)
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        seen["calls"] += 1
+        seen["seconds"] += time.perf_counter() - t0
+        return out
+
+    dist.all_reduce = counted
+    try:
+        yield seen
+    finally:
+        dist.all_reduce = real
+
+
+def shard_bytes(ss, eng):
+    """(bytes of each local shard of the engine, those of the whole
+    structure on one device): rank-block tables, shared, sizes and the two
+    trunc tables, what discovery reads."""
+    d = eng.d
+    per_entry = 4 + 4 + 16  # shared, sizes, prev_lt + next_lt
+    shard = d.blocks.numel() * 4 // d.n_local + per_entry * d.Re
+    one = ss.d.rank_blocks.numel() * 4 + per_entry * ss.n_entries
+    return [shard] * d.n_local, one
+
+
+def sharded_ops_checks(ss, eng, found, lanes=SHARDED_LANES):
+    """push_front for the four bases and truncate at SHARDED_TRUNC on
+    ``lanes`` ranges from find, on the sharded device and the single
+    device: equal in every lane, or fail."""
+    d, one = eng.d, ss.d
+    dev = one.device
+    g = torch.Generator(device="cpu").manual_seed(SEED + 93)
+    pick = torch.randint(0, found.begin.shape[0], (lanes,), generator=g).to(dev)
+    r = SeqsetRanges(found.begin[pick], found.end[pick], found.size[pick])
+    for b in range(4):
+        bb = torch.full((lanes,), b, dtype=torch.int64, device=dev)
+        require_equal(f"sharded push_front of base {b}", tuple(d.push_front(r, bb)), tuple(one.push_front(r, bb)))
+    for t in SHARDED_TRUNC:
+        require_equal(f"sharded truncate to {t}", tuple(d.truncate_ranges(r, t)), tuple(one.truncate_ranges(r, t)))
+
+
+def sharded_drop_walk(ss, eng, genome, lanes=SHARDED_LANES, steps=SHARDED_DROP_STEPS):
+    """The drop walk of JAX tests/test_sharded_wavefront.py at ``lanes``
+    lanes: from the empty sequence, ``steps`` complemented bases along the
+    genome from random starts, the sharded device against the single device
+    at every step.  Returns the lanes still valid at the end."""
+    d, one = eng.d, ss.d
+    dev = one.device
+    starts = np.random.default_rng(SEED + 95).integers(0, len(genome) - steps - 1, lanes)
+    bases = torch.from_numpy(3 - genome[starts[None, :] + np.arange(steps)[:, None]].astype(np.int64)).to(dev)
+    lane = SeqsetRanges(
+        torch.zeros(lanes, dtype=torch.int64, device=dev),
+        torch.full((lanes,), ss.n_entries, dtype=torch.int64, device=dev),
+        torch.zeros(lanes, dtype=torch.int32, device=dev),
+    )
+    for i in range(steps):
+        want = one.push_front_drop(lane, bases[i])
+        require_equal(f"sharded push_front_drop, step {i}", tuple(d.push_front_drop(lane, bases[i])), tuple(want))
+        lane = want
+    return int((lane.begin < lane.end).sum())
+
+
+def pileup_inputs(genome, dev, n=PILEUP_READS, L=READ_LEN):
+    """n reads of the genome with 1 % substitutions, from a seed: (codes,
+    lengths) on dev."""
+    rng = np.random.default_rng(SEED + 97)
+    starts = rng.integers(0, len(genome) - L, n)
+    codes = genome[starts[:, None] + np.arange(L)]
+    sub = rng.random(codes.shape) < 0.01
+    codes = np.where(sub, (codes + 1) % 4, codes).astype(np.uint8)
+    return torch.from_numpy(codes).to(dev), torch.full((n,), L, dtype=torch.int32, device=dev)
+
+
+def sharded_pileup(genome, dev):
+    """sharded_pileup_step over a (2, 4) mesh of the one process's 8 shards
+    on dev: int32 [4, G]."""
+    from biograph_tpu_torch.parallel.distributed import global_mesh
+    from biograph_tpu_torch.parallel.mesh import sharded_pileup_step
+    from biograph_tpu_torch.variants.align import RefKmerIndex
+
+    mesh = global_mesh({"data": -1, "model": 4}, shards_per_rank=8, device=dev)
+    idx = RefKmerIndex.build(genome, PILEUP_K, device=dev)
+    ref = torch.from_numpy(genome).to(dev)
+    step = sharded_pileup_step(mesh, idx.kmers, idx.positions, ref, PILEUP_K)
+    return step(idx.kmers, idx.positions, ref, *pileup_inputs(genome, dev))
+
+
+def sharded_phase(dev, ss, rm, reference, want, found, tmp, region=SHARDED_REGION, shards=SHARDED_SHARDS,
+                  lanes=SHARDED_LANES, steps=SHARDED_DROP_STEPS, inside=SHARDED_INSIDE, backend="nccl"):
+    """Leg 7: one rank of a ``backend`` process group (through a FileStore
+    in tmp) with the scaled store cut into ``shards`` entry shards.  The
+    engine is built and ``discover_variants(engine=...)`` run over
+    ``region`` with the readmap, cold (the engine's rank, rank4,
+    gather_sizes and rank_cum calls kept and held against their plain
+    versions, the all_reduce calls counted and fenced) and warm; its records
+    must equal the single device's by the dense front end and by the
+    prescreen, and ``discover_variants_distributed`` at one rank (the
+    committed records ``want`` more than ``inside`` bases inside the region
+    that it reproduces are counted, not gated); the
+    collective push_front, truncate and drop walk equal the single device
+    in every lane; ``sharded_pileup_step`` equals its CPU copy.  Returns
+    (what to print, the kernels' launches from the engine's build to the
+    end of its cold call)."""
+    import torch.distributed as dist
+
+    from biograph_tpu_torch.parallel import discovery as pdisc
+    from biograph_tpu_torch.parallel.distributed import global_mesh
+    from biograph_tpu_torch.parallel.sharded_discovery import ShardedDiscoveryEngine
+
+    genome = np.asarray(reference.flat)
+    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+    # the pileup's CPU copy, before the process group: one process, no collective
+    pile_cpu = sharded_pileup(genome, torch.device("cpu"))
+    store = dist.FileStore(os.path.join(tmp, "sharded_store"), 1)
+    dist.init_process_group(backend, store=store, world_size=1, rank=0, device_id=dev if backend == "nccl" else None)
+    try:
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        stats = {}
+        with kept_calls(SHARDED_CALL_SITES, ["sharded"]) as kept, counted_all_reduce() as reduces:
+            eng, build_s = timed(lambda: ShardedDiscoveryEngine(ss, global_mesh({"model": -1}, shards_per_rank=shards, device=dev)))
+            got, cold_s = timed(lambda: disc.discover_variants(ss, reference, region=region, opt=opt, readmap=rm, engine=eng, stats=stats))
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        out = {"shards": shards, "rank_shards": eng.shards, "region": list(region), "engine_build_s": build_s,
+               "launches": {k: launches[k] for k in SHARDED_KERNELS}}
+        out["shard_bytes"], out["whole_bytes"] = shard_bytes(ss, eng)
+        out["kernel_holds"] = hold_calls(kept, SHARDED_CALL_SITES, "leg 7's")
+        out["kernel_holds_max_abs_err"] = 0
+        del kept
+        again, warm_s = timed(lambda: disc.discover_variants(ss, reference, region=region, opt=opt, readmap=rm, engine=eng))
+        with discovery_constants(NO_PRESCREEN=True):
+            dense, dense_s = timed(lambda: disc.discover_variants(ss, reference, region=region, opt=opt, readmap=rm))
+        plain, plain_s = timed(lambda: disc.discover_variants(ss, reference, region=region, opt=opt, readmap=rm))
+        run_dir = os.path.join(tmp, "sharded_run")
+        spread, dist_s = timed(lambda: pdisc.discover_variants_distributed(ss, reference, run_dir, region=region, opt=opt, readmap=rm))
+        keys = list(map(key_of, got))
+        for name, other in (("the warm call", again), ("the single device's dense route", dense),
+                            ("the single device's prescreened route", plain), ("discover_variants_distributed", spread)):
+            if list(map(key_of, other)) != keys:
+                raise AssertionError(f"sharded: {len(got)} records by the engine, {len(other)} by {name}, or they differ")
+        if not got:
+            raise AssertionError(f"sharded: no record over {region}")
+        inside = [w for w in want if region[0] + inside < w[1] - 1 < region[1] - inside]
+        out.update(
+            records=len(got), committed_inside=len(inside), committed_inside_reproduced=len(set(inside) & set(keys)),
+            engine_cold_s=cold_s, engine_warm_s=warm_s, single_dense_s=dense_s, single_prescreen_s=plain_s,
+            distributed_world1_s=dist_s, all_reduce_calls=reduces["calls"], all_reduce_s=reduces["seconds"],
+            anchors_found=stats["anchors_found"], wave_steps=stats.get("wave_steps", 0),
+        )
+        _, out["ops_s"] = timed(lambda: sharded_ops_checks(ss, eng, found, lanes))
+        out["drop_walk_valid_lanes"], out["drop_walk_s"] = timed(lambda: sharded_drop_walk(ss, eng, genome, lanes, steps))
+        pile, out["pileup_s"] = timed(lambda: sharded_pileup(genome, dev))
+        require_equal("sharded_pileup_step against its CPU copy", pile.cpu(), pile_cpu)
+        out["pileup_placed_bases"] = int(pile_cpu.sum())
+        return out, launches
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     global PROFILE
     profile_to = None
@@ -4338,6 +4549,14 @@ def main():
         raise AssertionError(f"tools: pvcf_pipe launched no {missing} kernel (coverage's general route)")
     say(phase="tools", ok=True, card=card, seconds=seconds, **tools)
 
+    # leg 7: the scaled store cut into entry shards on one NCCL rank, the
+    # sharded engine's discovery over a region against the single device's
+    (sharded, sharded_launches), seconds = timed(lambda: sharded_phase(dev, ss, rm, scored_reference, want, found, tmp.name))
+    missing = [k for k in SHARDED_KERNELS if sharded_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"sharded: the engine launched no {missing} kernel")
+    say(phase="sharded", ok=True, card=card, seconds=seconds, **sharded)
+
     probe_pos = torch.arange(PROBE_CHUNK, device=dev)
     probe_m = torch.full((PROBE_CHUNK,), DEPTH, dtype=torch.int32, device=dev)
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
@@ -4356,6 +4575,7 @@ def main():
         r["launches_pipeline"] = pipeline_launches[r["name"]]
         r["launches_formats"] = formats_launches[r["name"]]
         r["launches_tools"] = tools_launches[r["name"]]
+        r["launches_sharded"] = sharded_launches[r["name"]]
     past_l2, seconds = timed(lambda: rank_past_l2(dev, make_stall(dev), breakdown))
     say(phase="rank_past_l2", card=card, seconds=seconds, **past_l2)
     if profile_to is not None:

@@ -388,8 +388,11 @@ def test_discovery_inputs_not_ported_raise(toy, tmp_path):
 
     tmp, fq, fa, _, _ = toy
     bgt = os.path.join(tmp, "run", "sample.bgt")
-    with pytest.raises(NotImplementedError, match="parallel/discovery.py"):
-        tcli.main(["discovery", "--mode", "assemble", "--biograph", bgt, "--ref", fa, "--out", str(tmp_path / "o.vcf"), "--dist-dir", str(tmp_path), "--device", "cpu"])
+    # --dist-dir is ported (parallel/discovery.py): at one process it is the plain call
+    base = ["discovery", "--mode", "assemble", "--biograph", bgt, "--ref", fa, "--no-sv", "--region", "chr1:0-6000", "--device", "cpu"]
+    tcli.main(base + ["--out", str(tmp_path / "plain.vcf")])
+    tcli.main(base + ["--out", str(tmp_path / "o.vcf"), "--dist-dir", str(tmp_path / "run")])
+    assert (tmp_path / "o.vcf").read_text() == (tmp_path / "plain.vcf").read_text()
     pac = tmp_path / "bwa_ref"
     pac.mkdir()
     (pac / "genome.pac").write_bytes(b"\0")  # no .ann beside it, under no name io/pac.py reads
