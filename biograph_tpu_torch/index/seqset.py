@@ -19,8 +19,8 @@ batched.  The engine (``Seqset.d``) holds the rank structure in one form, the
 rank-block table of ``ops/rank4.py`` (one 32-byte sector a rank), built once
 from the stored pair and never saved.  ``rank4`` (the rank4 kernel),
 ``push4`` (the push4 kernel: rank4 at both range ends and the kick's size
-gather in one launch), ``rank``, ``push_front``, ``find`` and
-``find_existing`` (the rank kernel, both ends of a range in one launch),
+gather in one launch), ``push_front`` and ``find`` (the push_front kernel,
+the same for one base), ``rank`` and ``find_existing`` (the rank kernel),
 ``sizes_at`` (gather_sizes) and the find-window chains of
 ``index/probes.py`` (chain_window) all read that table when the tensors are
 on the card, whatever the batch size and whatever the seqset's size; the
@@ -344,12 +344,13 @@ class _SeqsetDevice(_WidenFamily):
 
     def push_front(self, r: SeqsetRanges, b) -> SeqsetRanges:
         """Batched push_front.  Lanes with invalid input ranges come back
-        as (begin, begin, size).  Both range ends are ranked in one launch
-        of the rank kernel on the card."""
+        as (begin, begin, size).  One launch of the push_front kernel on
+        the card: both range ends ranked, the kick's size gather and the
+        step's arithmetic, fused.  r.size is int32, b [B] in [0, 4)."""
         return SeqsetRanges(
-            *rank4_ops.push_front_over(
-                self._rank_ends, self.entry_sizes, self.fixed, r.begin, r.end, r.size,
-                self._t(b, torch.int64),
+            *rank4_ops.push_front(
+                self.rank_blocks, self.entry_sizes, self.fixed, r.begin.contiguous(),
+                r.end.contiguous(), r.size.contiguous(), self._t(b, torch.int64).contiguous(),
             )
         )
 

@@ -33,7 +33,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kernels_build")
 KERNELS = (
-    "rank4", "rank4_tiled", "gather_sizes", "push4", "chain_window", "rank_cum"
+    "rank4", "rank4_tiled", "gather_sizes", "push4", "push_front",
+    "chain_window", "rank_cum",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -1,5 +1,5 @@
-"""The seqset's rank kernels: rank4 and rank, gather_sizes and push4,
-chain_window, rank4_tiled (K1-K3, K5).
+"""The seqset's rank kernels: rank4 and rank, gather_sizes, push4 and
+push_front, chain_window, rank4_tiled (K1-K3, K5).
 
 They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
 
@@ -10,6 +10,9 @@ They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
   * ``push4`` <- the same gather where the seqset uses it, the kick test of
     ``_SeqsetDevice.push4``, fused with that function's rank4 and the tensor
     code around the two: all four children of a range in one launch
+  * ``push_front`` <- the same gather where ``Seqset.push_front`` uses it,
+    fused with that function's two ranks and the tensor code around them:
+    one push_front step of a batch of ranges in one launch
   * ``chain_window`` <- ``chain_window_pallas`` (``_chain_window_kernel``),
     with ``chain_fixed`` <- ``chain_fixed_pallas`` over contiguous positions
 
@@ -27,8 +30,9 @@ blocks of one int64 count and six words, one aligned sector a rank, the four
 bases' blocks of a position side by side in one aligned 128-byte line.
 ``rank4`` (four lanes a query, one a base), ``rank`` (one base a query, both
 ends of a range in one launch), ``push4`` (four lanes a range, both ends
-ranked and the child's first entry size gathered by the lane that needs it)
-and ``chain_window`` (the whole dependent chain of a lane in registers, no
+ranked and the child's first entry size gathered by the lane that needs it),
+``push_front`` (one lane a range, the same for one base) and
+``chain_window`` (the whole dependent chain of a lane in registers, no
 second sector when both range ends share a block) read nothing else of the
 structure.
 
@@ -296,7 +300,7 @@ def push_front_over(rank_ends, entry_sizes, fixed, begin, end, size, b):
     ne = fixed_b + rank_end
     new_size = size + 1
     # kick begin forward if the first entry is too short to hold b+S
-    sizes_nb = entry_sizes[nb.clamp(0, n - 1)]
+    sizes_nb = gather_sizes_plain(entry_sizes, nb.clamp(0, n - 1))
     kick = (nb < ne) & (sizes_nb < new_size)
     nb = nb + kick.to(nb.dtype)
     was_valid = begin < end
@@ -318,6 +322,17 @@ def push_front_plain(prev_words, prev_cum, entry_sizes, fixed, begin, end,
     return push_front_over(rank_ends, entry_sizes, fixed, begin, end, size, b)
 
 
+def push_front_blocks_plain(blocks, entry_sizes, fixed, begin, end, size, b):
+    """Plain version of ``push_front``: one batched push_front step, both
+    range ends ranked from the rank-block table (``rank_blocks_plain``) and
+    the kick's size read by ``gather_sizes_plain``: (begin, end, size)."""
+
+    def rank_ends(b, begin, end):
+        return rank_blocks_plain(blocks, b, begin), rank_blocks_plain(blocks, b, end)
+
+    return push_front_over(rank_ends, entry_sizes, fixed, begin, end, size, b)
+
+
 def chain_window_plain(blocks, entry_sizes, fixed, win, m, depth: int):
     """Plain version of ``chain_window``: the find-window loop of push_front
     steps, the ranks read from the rank-block table."""
@@ -328,15 +343,10 @@ def chain_window_plain(blocks, entry_sizes, fixed, win, m, depth: int):
     begin = torch.zeros(P, dtype=torch.int64, device=dev)
     end = torch.full((P,), n, dtype=torch.int64, device=dev)
     size = torch.zeros(P, dtype=torch.int32, device=dev)
-
-    def rank_ends(b, begin, end):
-        return rank_blocks_plain(blocks, b, begin), rank_blocks_plain(blocks, b, end)
-
     for s in range(depth):
         started = s >= (depth - m)
-        nb, ne, ns = push_front_over(
-            rank_ends, entry_sizes, fixed, begin, end, size,
-            win[:, s].to(torch.int64),
+        nb, ne, ns = push_front_blocks_plain(
+            blocks, entry_sizes, fixed, begin, end, size, win[:, s].to(torch.int64)
         )
         begin = torch.where(started, nb, begin)
         end = torch.where(started, ne, end)
@@ -467,6 +477,7 @@ _KERNEL_CONSTANTS = {
         ("bgt_rank4_tiled_counter_ints", COUNTER_INTS),
     ),
     "push4": (("bgt_push4_block_words", BLOCK_WORDS),),
+    "push_front": (("bgt_push_front_block_words", BLOCK_WORDS),),
     "chain_window": (("bgt_chain_window_block_words", BLOCK_WORDS),),
 }
 
@@ -565,6 +576,30 @@ def gather_sizes(entry_sizes, idx) -> torch.Tensor:
 gather_sizes.launches = 0
 
 
+def _check_push(name, blocks, entry_sizes, fixed, begin, end, size, *bases):
+    """The inputs push4 and push_front take: begin, end int64 [B], size
+    int32 [B], each of ``bases`` int64 [B], fixed int64 [5], entry_sizes
+    int32 [n>0]."""
+    _check_blocks(name, blocks)
+    if (
+        begin.dtype != torch.int64
+        or begin.dim() != 1
+        or any(t.dtype != torch.int64 or t.shape != begin.shape for t in (end, *bases))
+        or size.dtype != torch.int32
+        or size.shape != begin.shape
+        or fixed.dtype != torch.int64
+        or fixed.shape != (5,)
+        or entry_sizes.dtype != torch.int32
+        or entry_sizes.dim() != 1
+    ):
+        raise TypeError(
+            f"{name}: want begin, end int64 [B], size int32 [B],"
+            f"{' b int64 [B],' if bases else ''} fixed int64 [5], entry_sizes int32 [n]"
+        )
+    if entry_sizes.shape[0] == 0:
+        raise ValueError(f"{name}: entry_sizes is empty")
+
+
 def push4(blocks, entry_sizes, fixed, begin, end, size):
     """The children of each range for all four pushed bases, in one launch:
     (begin4, end4) int64 [B, 4], column b the (begin, end) of
@@ -574,25 +609,7 @@ def push4(blocks, entry_sizes, fixed, begin, end, size):
     blocks int32 [nblk, 4, 8], the rank-block table; entry_sizes int32 [n>0];
     fixed int64 [5]; begin, end int64 [B]; size int32 [B].  Counts are below
     2^31, as for ``rank4``."""
-    _check_blocks("push4", blocks)
-    if (
-        begin.dtype != torch.int64
-        or begin.dim() != 1
-        or end.dtype != torch.int64
-        or end.shape != begin.shape
-        or size.dtype != torch.int32
-        or size.shape != begin.shape
-        or fixed.dtype != torch.int64
-        or fixed.shape != (5,)
-        or entry_sizes.dtype != torch.int32
-        or entry_sizes.dim() != 1
-    ):
-        raise TypeError(
-            "push4: want begin, end int64 [B], size int32 [B], fixed int64 "
-            "[5], entry_sizes int32 [n]"
-        )
-    if entry_sizes.shape[0] == 0:
-        raise ValueError("push4: entry_sizes is empty")
+    _check_push("push4", blocks, entry_sizes, fixed, begin, end, size)
     devices = {t.device.type for t in (blocks, entry_sizes, fixed, begin, end, size)}
     if devices == {"cpu"}:
         return push4_plain(blocks, entry_sizes, fixed, begin, end, size)
@@ -615,6 +632,38 @@ def push4(blocks, entry_sizes, fixed, begin, end, size):
 
 
 push4.launches = 0
+
+
+def push_front(blocks, entry_sizes, fixed, begin, end, size, b):
+    """One push_front step of each range, in one launch: (begin, end, size)
+    of push_front((begin, end, size), b), int64, int64 and int32 [B].  A range
+    with begin >= end comes back as (begin, begin, size).
+
+    blocks int32 [nblk, 4, 8], the rank-block table; entry_sizes int32 [n>0];
+    fixed int64 [5]; begin, end int64 [B]; size int32 [B]; b int64 [B] in
+    [0, 4), which the kernel asserts.  Counts are below 2^31, as for
+    ``rank4``."""
+    _check_push("push_front", blocks, entry_sizes, fixed, begin, end, size, b)
+    devices = {t.device.type for t in (blocks, entry_sizes, fixed, begin, end, size, b)}
+    if devices == {"cpu"}:
+        return push_front_blocks_plain(blocks, entry_sizes, fixed, begin, end, size, b)
+    _check_cuda("push_front", begin, blocks, entry_sizes, fixed, end, size, b)
+    _build.check_constants("push_front", _KERNEL_CONSTANTS["push_front"])
+    B = begin.shape[0]
+    out = (torch.empty_like(begin), torch.empty_like(end), torch.empty_like(size))
+    if B == 0:
+        return out
+    _build.launch(
+        "push_front", "bgt_push_front", [_VP] * 10 + [_LL] * 3, begin.device,
+        _build.ptr(blocks), _build.ptr(entry_sizes), _build.ptr(fixed),
+        _build.ptr(begin), _build.ptr(end), _build.ptr(size), _build.ptr(b),
+        *(_build.ptr(t) for t in out), blocks.shape[0], entry_sizes.shape[0], B,
+    )
+    push_front.launches += 1
+    return out
+
+
+push_front.launches = 0
 
 
 def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):

@@ -8,15 +8,19 @@ equality: everything is integer), then drives the port's create-and-query
 path at a real size: 120 000 reads of 100 bases over a 2 Mb genome with
 4000 planted SNPs, half of them reverse-complemented, generated in-process
 from seed 12345.  The path is build_seqset -> build_readmap -> save/load ->
-find of all 240 000 oriented reads -> rank4 at the found ranges' ends (and
-the same through rank4_tiled over a tiled table the caller builds) -> push4
-(and sizes_at at the children it returns) -> probe_exact (depth 32) over every
-position of the doubled fwd+rc genome text.  Then variant discovery runs on the
+find of all 240 000 oriented reads (one push_front launch a step) -> rank4
+at the found ranges' ends (and the same through rank4_tiled over a tiled
+table the caller builds) -> push4 (and sizes_at at the children it returns)
+-> probe_exact (depth 32) over every position of the doubled fwd+rc genome
+text.  find runs again with push_front held against its plain version at
+every step, and over the unfused step it replaced (the rank kernel and
+tensor code), both timed and their device operations a step counted
+(``find_checks``).  Then variant discovery runs on the
 same store, from the read store to records (prescreen, chain-kernel front end,
 anchor scan, beam wavefront, extract + affine DP), cold and warm, and is held
 to the genome, to the planted SNPs and, over a region, to the same call on a
 CPU copy of the store, where every kernel's plain version runs; the call is
-then replayed stage by stage with push4, rank and chain_window each held
+then replayed stage by stage with push4, push_front and chain_window each held
 against its plain version on the very lanes discovery hands it; a small
 genome with an insertion, a deletion and a block substitution is discovered on
 the card and on the CPU with identical records, which takes the affine DP to
@@ -33,9 +37,9 @@ insertion culled on both by a gate that asks for more pairs than exist; so is
 coverage on a library of mixed read lengths (its general route: probe_ranges,
 then the chain kernel).  The scored call then runs twice more, cold and
 warm, each held to the same records: by the dense front end
-(``discover.NO_PRESCREEN``: the restart chain through rank over every
+(``discover.NO_PRESCREEN``: the restart chain through push_front over every
 position, the filter and the bisection through chain_window over the lanes
-that restarted), with rank and push4 then held against their plain versions
+that restarted), with push_front and push4 then held against their plain versions
 on its lanes; and with a memory plan that leaves no room for the trunc
 tables (``discover.BUDGET_BYTES``), so each beam step truncates through the
 seqset's LtSearch.  The widen family (truncate_ranges, pop_front_ranges,
@@ -56,7 +60,7 @@ diploid library (120 000 pairs over the same genome: 3000 het and 1000 hom
 SNPs, 200 het indels, half the reads trimmed by 1-30 bases) is built with
 its mate pairs, discovered with the pair gate and annotated with pairs,
 phasing and the joint graph on coverage's general route, which must launch
-rank and chain_window; a region of 200 records is held to a CPU copy, the
+push_front and chain_window; a region of 200 records is held to a CPU copy, the
 genotypes to the library's truth, and a classifier trained on the card to
 the same training on the CPU.
 The create stage follows.  The main path's reads are built again under a
@@ -91,9 +95,9 @@ line, and QUAL of the classifier's), every feature array, the records by
 engine and the SV pass's counts equal to the JAX package's CPU run
 (``tests/data/torch_pipeline_sv_leg.json``), results.vcf's QUAL the phred
 of probabilities within 1e-5 of the file's, every stage done at its first
-attempt; it must launch rank_cum, push4, rank and chain_window, and the
-first and the widest call of each in each stage (create's rank_cum,
-discovery's push4, rank and chain_window, coverage's rank and
+attempt; it must launch rank_cum, push4, push_front and chain_window, and
+the first and the widest call of each in each stage (create's rank_cum,
+discovery's push4, push_front and chain_window, coverage's push_front and
 chain_window) is kept and held against its plain version on the same
 inputs.  ``--resume`` must run no stage and leave results.vcf as it was;
 ``--resume --rerun`` of each stage gives its warm seconds and the same
@@ -123,7 +127,7 @@ are equal on the ``.bg`` store and the ``.bgt``.  (d) ``export_aligned``
 over the trimmed library's truth VCF on the card, read back; over a region
 on the card and on a CPU copy, equal record for record.  (e) ``query``,
 ``stats`` and ``export_fastq`` on the card against the CPU.  The build's
-and the importer's ``rank_cum`` and find's ``rank`` calls are kept, first
+and the importer's ``rank_cum`` and find's ``push_front`` calls are kept, first
 and widest, and held against their plain versions.
 Leg 6 (``tools``) is the tools over three of those stores, three unrelated
 donors that a PED names proband, father and mother: leg 1's store with its
@@ -131,8 +135,8 @@ VCF of the 2299 records (its contig renamed chr1, as leg 4's FASTA names
 it), leg 3's store with leg 2's discovery VCF, and leg 4's store with its
 discovery VCF.  ``pvcf_pipe --device cuda`` through the CLI, cold, squares
 off their union in each readmap (leg 1's by the hash route, the other two
-by the general route: rank, then chain_window) and annotates it against
-the PED.  Each sample's coverage is timed, and every rank, chain_window and
+by the general route: push_front, then chain_window) and annotates it against
+the PED.  Each sample's coverage is timed, and every push_front, chain_window and
 chain_fixed call it makes is kept, first and widest, and held against its
 plain version; the union and the sample columns are held to
 ``union_records`` and the PED; the annotated records of a region that
@@ -240,13 +244,16 @@ WRAPPERS = {
     "rank4_tiled": rank4_ops.rank4_tiled,
     "gather_sizes": rank4_ops.gather_sizes,
     "push4": rank4_ops.push4,
+    "push_front": rank4_ops.push_front,
     "chain_window": rank4_ops.chain_window,
     "chain_fixed": rank4_ops.chain_fixed,
     "rank_cum": rank_cum_ops.rank_cum,
 }
 # the kernels of the create-and-query path: chain_fixed is coverage's (its
-# uniform route without the hash index), which scored_checks drives
-MAIN_PATH_KERNELS = tuple(name for name in WRAPPERS if name != "chain_fixed")
+# uniform route without the hash index), which scored_checks drives; rank,
+# since push_front took find's steps, is the widen family's (widen_checks
+# counts it) and the sharded engine's (leg 7 must launch it)
+MAIN_PATH_KERNELS = tuple(name for name in WRAPPERS if name not in ("chain_fixed", "rank"))
 SOURCES = {"rank": "rank4", "chain_fixed": "chain_window"}  # kernels whose source is not named after them
 REPLACES = {
     "rank4": "biograph_tpu/ops/rank4.py:134",
@@ -254,6 +261,7 @@ REPLACES = {
     "rank4_tiled": "biograph_tpu/ops/rank4.py:559",
     "gather_sizes": "biograph_tpu/ops/rank4.py:202",
     "push4": "biograph_tpu/ops/rank4.py:202",
+    "push_front": "biograph_tpu/ops/rank4.py:202",
     "chain_window": "biograph_tpu/ops/rank4.py:359",
     "chain_fixed": "biograph_tpu/ops/rank4.py:407",
     "rank_cum": "biograph_tpu/ops/pallas_rank.py:89",
@@ -623,6 +631,32 @@ def push4_unfused(d, r):
     return torch.where(was_valid, nb, r.begin[:, None]), torch.where(was_valid, ne, r.begin[:, None])
 
 
+def push_front_unfused(d, r, b):
+    """Seqset.push_front as it was before the push_front kernel: the rank
+    kernel over both range ends, and tensor code around it (the kick's size
+    read by a torch index).  Kept here as the yardstick the fused kernel is
+    timed against."""
+    return SeqsetRanges(*rank4_ops.push_front_over(d._rank_ends, d.entry_sizes, d.fixed, r.begin, r.end, r.size, b.to(torch.int64)))
+
+
+class UnfusedEngine:
+    """A seqset's query engine whose push_front is ``push_front_unfused``;
+    everything else is the engine's own.  Its ``find`` is the engine's find
+    over the unfused step."""
+
+    def __init__(self, d):
+        self._d = d
+
+    def __getattr__(self, name):
+        return getattr(self._d, name)
+
+    def push_front(self, r, b):
+        return push_front_unfused(self._d, r, b)
+
+    def find(self, codes, lengths):
+        return type(self._d).find(self, codes, lengths)
+
+
 def push4_edges(dev, g, ss):
     """push4 against push4_plain and against four push_front calls over the
     structure as stored: every range of a small seqset's entry pairs, B not a
@@ -673,6 +707,53 @@ def push4_edges(dev, g, ss):
         raise AssertionError("push4: the made-up store never pushed a begin to n")
 
 
+def push_front_edges(dev, g, ss):
+    """push_front against push_front_blocks_plain and against push_front
+    over the structure as stored, on the ranges of push4_edges, every base
+    in turn and bases at random; and on the made-up store whose pushed begin
+    reaches n (the min(nb, n - 1) clamp)."""
+    d = ss.d
+    n = ss.n_entries
+    words, cum = ss.prev_words.to(dev), ss.prev_cum.to(dev)
+
+    def check(name, begin, end, size, b):
+        args = (d.rank_blocks, d.entry_sizes, d.fixed, begin.contiguous(), end.contiguous(), size.contiguous(), b.contiguous())
+        got = rank4_ops.push_front(*args)
+        require_equal(f"push_front {name}", got, rank4_ops.push_front_blocks_plain(*args))
+        require_equal(f"push_front {name} vs push_front as stored", got, rank4_ops.push_front_plain(words, cum, *args[1:]))
+
+    entry = torch.arange(n + 1, device=dev)
+    for width in (0, 1, 2, 7, 191, 192, 193, 1000):
+        end = (entry + width).clamp(max=n)
+        for size in (0, 1, 24, 39, 40):  # below, at and above the entries' sizes: the kick on and off
+            sz = torch.full_like(entry, size, dtype=torch.int32)
+            for b in range(4):
+                check(f"every entry, width {width}, size {size}, base {b}", entry, end, sz, torch.full_like(entry, b))
+    B = 1003  # not a multiple of the block
+    begin = torch.randint(0, n + 1, (B,), generator=g).to(dev)
+    end = torch.randint(0, n + 1, (B,), generator=g).to(dev)  # about half reversed: invalid
+    size = torch.randint(0, 45, (B,), generator=g).to(torch.int32).to(dev)
+    b = torch.randint(0, 4, (B,), generator=g).to(dev)
+    check("random ends", begin, end, size, b)
+    check("whole store", torch.zeros(4, dtype=torch.int64, device=dev), torch.full((4,), n, device=dev),
+          torch.arange(4, dtype=torch.int32, device=dev), torch.arange(4, device=dev))
+    check("one range", begin[:1], begin[:1] + 1, size[:1], b[:1])
+    nw = 7
+    n2 = 32 * nw
+    ones = torch.full((4, nw), -1, dtype=torch.int32, device=dev)
+    blocks = rank4_ops.build_rank_blocks(ones, rank_cum_ops.rank_cum_plain(ones).to(torch.int64))
+    sizes = torch.randint(1, 5, (n2,), generator=g).to(torch.int32).to(dev)
+    begin = torch.arange(n2 + 1, device=dev)
+    end = torch.full_like(begin, n2)
+    for f3 in (0, 5, n2 - 1, n2):
+        fixed = torch.tensor([0, 0, 0, f3, n2], device=dev)
+        args = (blocks, sizes, fixed, begin, end, torch.full_like(begin, 2, dtype=torch.int32), torch.full_like(begin, 3))
+        got = rank4_ops.push_front(*args)
+        require_equal(f"push_front pushed begin up to n, fixed[3]={f3}", got, rank4_ops.push_front_blocks_plain(*args))
+    if not bool((got[0] >= n2).any()):
+        raise AssertionError("push_front: the made-up store never pushed a begin to n")
+
+
 def edge_checks(dev):
     """Small and ragged shapes: B not a multiple of the block, pos == 0,
     pos == n, pos == 32*nw, pos < 0, m == 0, m == depth, scan sizes around the
@@ -709,6 +790,13 @@ def edge_checks(dev):
     sizes = torch.randint(1, 70000, (777,), generator=g).to(torch.int32).to(dev)
     idx = torch.randint(0, 777, (5, 201), generator=g).to(dev)
     require_equal("gather_sizes", rank4_ops.gather_sizes(sizes, idx), rank4_ops.gather_sizes_plain(sizes, idx))
+    # every count up to a few vector groups, from each of the first four
+    # indices: the head that aligns the body, the tail of B % 4, no body
+    flat = torch.randint(0, 777, (4000,), generator=g).to(dev)
+    for B in (*range(1, 40), 1000, 1001, 1002, 1003):
+        for off in range(4):
+            v = flat[off : off + B]
+            require_equal(f"gather_sizes B={B} from {off}", rank4_ops.gather_sizes(sizes, v), rank4_ops.gather_sizes_plain(sizes, v))
 
     _, codes, lengths = make_workload(6000, 900, 30, 40)
     lengths = lengths.copy()
@@ -720,6 +808,7 @@ def edge_checks(dev):
     d = ss.d
     check_rank_blocks("seqset", ss.prev_words, ss.prev_cum, d.rank_blocks, torch.arange(ss.n_entries + 1, device=dev))
     push4_edges(dev, g, ss)
+    push_front_edges(dev, g, ss)
     entry = torch.arange(ss.n_entries, device=dev)
     for b in range(4):  # the entry's bit, from the block's word slot and from the stored word
         stored = (ss.prev_words[b, entry >> 5].to(torch.int64) >> (entry & 31)) & 1
@@ -775,14 +864,15 @@ def chain_sectors(d, win, m, depth):
 SECTOR = 32
 
 
-def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, probe_m_mixed, coverage_slab, breakdown=False):
+def kernel_table(ss, launches, find_ranges, find_step, probe_text, probe_pos, probe_m, probe_m_mixed, coverage_slab, breakdown=False):
     """Each kernel at the main path's shapes: equality with the plain
     version, times, and the least time the card could take.  ``ms``,
     ``plain_ms`` and ``library_ms`` are device times (calls queued behind a
     stall); ``call_ms`` is the kernel wrapper's time per call as a caller
     issuing it in a loop sees it, host cost included.  coverage_slab: (text,
     depth) of the slab of scored rows that scored_checks ran through
-    chain_fixed."""
+    chain_fixed; find_step: (ranges, bases), the inputs of a step of find
+    (``find_checks``)."""
     rows = []
     d = ss.d
     dev = d.device
@@ -832,8 +922,9 @@ def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, prob
     r["sectors"] = B * 4 + B * (8 + 16) // SECTOR
     r["sectors_per_s"] = r["sectors"] / r["ms"] * 1e3
 
-    # rank as find's push_front calls it: one base a query, both ends of each
-    # range in one launch (two sectors, or one when they share a block)
+    # rank as Seqset.push_front called it before the push_front kernel: one
+    # base a query, both ends of each range in one launch (two sectors, or one
+    # when they share a block)
     b = torch.randint(0, 4, find_ranges.begin.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 3))
     ends = (find_ranges.begin.contiguous(), find_ranges.end.contiguous())
     require_equal("rank vs the structure as stored", rank4_ops.rank(blocks, b, *ends),
@@ -889,6 +980,12 @@ def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, prob
         plain_reps=20,
     )
     gather["sectors"] = idx.numel() + idx.numel() * (8 + 4) // SECTOR
+    # the vector body's edges: B % 4 of 3, 2 and 1 from the first index on,
+    # and the same counts starting 1-3 indices in (a head to align, or none)
+    flat = idx.reshape(-1)
+    for k in (1, 2, 3):
+        for name, v in (("tail", flat[: flat.numel() - k]), ("offset", flat[k:])):
+            require_equal(f"gather_sizes, {name} {k}", rank4_ops.gather_sizes(d.entry_sizes, v), rank4_ops.gather_sizes_plain(d.entry_sizes, v))
     gather["distinct_sectors_gathered"] = int(torch.unique(idx >> 3).numel())
     gather["sector_bytes_ms"] = gather["sectors"] * SECTOR / PEAK_BYTES_PER_S * 1e3
 
@@ -933,6 +1030,47 @@ def kernel_table(ss, launches, find_ranges, probe_text, probe_pos, probe_m, prob
     }
     fused["unfused_call_ms_by_ranges"] = {
         str(k): event_ms(lambda: push4_unfused(d, SeqsetRanges(r.begin[:k], r.end[:k], r.size[:k])), 20)
+        for k in (512, 4096, 32768)
+    }
+
+    # push_front as find calls it: the middle step of find over every
+    # oriented read (find_step: the ranges of the reads' last half and the
+    # base before it).  A lane reads its 28 bytes of input and writes 20,
+    # asks for base b's block for begin and another when end lies in another
+    # block, and reads one entry size when the pushed range is not empty.
+    # Beside it, unfused_ms: the form Seqset.push_front had before this
+    # kernel (the rank kernel and tensor code around it), on the same lanes.
+    r, b = find_step
+    R = r.begin.shape[0]
+    pf = (blocks, d.entry_sizes, d.fixed, r.begin, r.end, r.size, b)
+    require_equal("push_front vs its unfused form", rank4_ops.push_front(*pf), tuple(push_front_unfused(d, r, b)))
+    valid = r.begin < r.end
+    two_lines = valid & ((r.begin >> 5).clamp(max=last_word) // rank4_ops.BLOCK_WORDS != (r.end >> 5).clamp(max=last_word) // rank4_ops.BLOCK_WORDS)
+    pushed = int((valid & (rank4_ops.rank_blocks_plain(blocks, b, r.begin) < rank4_ops.rank_blocks_plain(blocks, b, r.end))).sum())
+    sectors = int(valid.sum()) + int(two_lines.sum())
+    single = row(
+        "push_front",
+        lambda: rank4_ops.push_front(*pf),
+        lambda: rank4_ops.push_front_blocks_plain(*pf),
+        R * (8 + 8 + 4 + 8) + R * (8 + 8 + 4) + min(sectors * SECTOR, blocks_bytes) + min(pushed * 4, n * 4) + 40,
+        int(valid.sum()) * CHAIN_OPS_PER_STEP,
+    )
+    single["lanes"] = R
+    single["sectors"] = sectors + pushed + R * (28 + 20) // SECTOR
+    single["sectors_per_s"] = single["sectors"] / single["ms"] * 1e3
+    single["ranges_not_empty"] = pushed
+    single["unfused_ms"] = event_ms(lambda: push_front_unfused(d, r, b), 20, stall=stall)
+    single["unfused_call_ms"] = event_ms(lambda: push_front_unfused(d, r, b), 20)
+    if breakdown:
+        single["unfused_kernels_us"] = kernels_us(lambda: push_front_unfused(d, r, b))
+    # and at narrower widths (the wavefront's seed is 16 384 lanes), where
+    # a call's time is its host's
+    single["call_ms_by_ranges"] = {
+        str(k): event_ms(lambda: rank4_ops.push_front(*pf[:3], r.begin[:k], r.end[:k], r.size[:k], b[:k]), 20)
+        for k in (512, 4096, 32768)
+    }
+    single["unfused_call_ms_by_ranges"] = {
+        str(k): event_ms(lambda: push_front_unfused(d, SeqsetRanges(r.begin[:k], r.end[:k], r.size[:k]), b[:k]), 20)
         for k in (512, 4096, 32768)
     }
 
@@ -1260,11 +1398,56 @@ def check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, d
     return {"sampled_lanes": sample, "host_checked_windows": int(len(pos_h))}
 
 
+def find_checks(dev, ss, codes, lengths, found, profile_reads=4096):
+    """find of every oriented read again, with push_front held against its
+    plain version at every step (``held_kernels``), and once more over the
+    unfused step (``UnfusedEngine``), each equal to the main path's ranges;
+    both timed, and their device operations a step counted under
+    torch.profiler on the first ``profile_reads`` reads.  Returns (what to
+    print, the inputs of find's middle step: the ranges of the reads' last
+    half and the base before it)."""
+    d = ss.d
+    codes_dev = torch.from_numpy(codes).to(dev)
+    lens_dev = torch.from_numpy(lengths).to(dev)
+    from biograph_tpu_torch.core.dna import revcomp_codes
+
+    oriented = torch.cat([codes_dev, revcomp_codes(codes_dev, lens_dev)])
+    olens = torch.cat([lens_dev, lens_dev])
+    with held_kernels() as held:
+        again, held_s = timed(lambda: d.find(oriented, olens))
+    require_equal("find with push_front held at every step", tuple(again), tuple(found))
+    if not held["push_front"]:
+        raise AssertionError("find never called push_front")
+    unfused = UnfusedEngine(d)
+    old, unfused_s = timed(lambda: unfused.find(oriented, olens))
+    require_equal("find over the unfused push_front", tuple(old), tuple(found))
+    _, fused_s = timed(lambda: d.find(oriented, olens))
+    steps = oriented.shape[1]
+    part = (oriented[:profile_reads], olens[:profile_reads])
+    t0 = time.perf_counter()
+    _, ops = device_ops(lambda: d.find(*part))
+    _, ops_unfused = device_ops(lambda: unfused.find(*part))
+    profile_s = time.perf_counter() - t0
+    half = steps // 2
+    if not bool((olens >= half).all()):
+        raise AssertionError("find_checks: a read shorter than half the longest")
+    mid = d.find(oriented[:, half:].contiguous(), olens - half)
+    step = (mid, oriented[:, half - 1].to(torch.int64).contiguous())
+    return {
+        "reads": int(oriented.shape[0]), "steps": steps,
+        "push_front_calls_by_lanes": {str(k): v for k, v in held["push_front"].items()}, "held_s": held_s,
+        "find_s": fused_s, "find_unfused_s": unfused_s, "profile_s": profile_s,
+        "device_ops": ops, "device_ops_unfused": ops_unfused,
+        "device_ops_a_step": ops / steps if ops else None,
+        "device_ops_a_step_unfused": ops_unfused / steps if ops_unfused else None,
+    }, step
+
+
 # ---------------------------------------------------------------------------
 # discovery: from the read store to records
 # ---------------------------------------------------------------------------
 
-DISCOVER_KERNELS = ("push4", "rank", "chain_window")
+DISCOVER_KERNELS = ("push4", "push_front", "chain_window")
 DISCOVER_OPT = dict(min_alt_support=5)
 REGION = (0, 32768)  # held against the plain versions on a CPU copy of the store
 MIN_READS_OVER_SNP = 5
@@ -1362,7 +1545,7 @@ class HeldEngine:
 
     def __init__(self, d):
         self._d = d
-        self.held = {"push4": {}, "rank": {}}
+        self.held = {"push4": {}, "push_front": {}}
 
     def __getattr__(self, name):
         return getattr(self._d, name)
@@ -1382,14 +1565,13 @@ class HeldEngine:
 
     def push_front(self, r, b):
         d = self._d
-        b = b.to(torch.int64).contiguous()
+        got = d.push_front(r, b)
         require_equal(
-            f"rank in discovery, {b.shape[0]} lanes",
-            rank4_ops.rank(d.rank_blocks, b, r.begin.contiguous(), r.end.contiguous()),
-            (rank4_ops.rank_blocks_plain(d.rank_blocks, b, r.begin), rank4_ops.rank_blocks_plain(d.rank_blocks, b, r.end)),
+            f"push_front in discovery, {r.begin.shape[0]} lanes", tuple(got),
+            rank4_ops.push_front_blocks_plain(d.rank_blocks, d.entry_sizes, d.fixed, r.begin, r.end, r.size, b.to(torch.int64)),
         )
-        self._count("rank", b.shape[0])
-        return d.push_front(r, b)
+        self._count("push_front", r.begin.shape[0])
+        return got
 
 
 def discover_kernel_holds(ss, reference, anchors_found=None):
@@ -1398,8 +1580,9 @@ def discover_kernel_holds(ss, reference, anchors_found=None):
     stage through the package's own functions: the filter and every bisection
     round hold chain_window at depth probe_ctx over all candidate lanes; the
     anchor scan holds push4 on those lanes; the first beam group of each
-    orientation, seeded and driven to its end, holds rank on the seed and
-    push4 at every beam step, at the full and at every compacted width."""
+    orientation, seeded and driven to its end, holds push_front on the seed
+    and push4 at every beam step, at the full and at every compacted
+    width."""
     opt = disc.DiscoverOptions(**DISCOVER_OPT)
     d, dev = ss.d, ss.device
     held = HeldEngine(d)
@@ -1434,7 +1617,7 @@ def discover_kernel_holds(ss, reference, anchors_found=None):
             raise AssertionError(f"the replayed discovery path never reached {kernel}")
     return {
         "lanes": int(pos.shape[0]), "anchors": n_raw, "chain_window_depth": opt.probe_ctx, "chain_window_mean_m": chains,
-        "push4_calls_by_lanes": held.held["push4"], "rank_calls_by_lanes": held.held["rank"],
+        "push4_calls_by_lanes": held.held["push4"], "push_front_calls_by_lanes": held.held["push_front"],
         "beam_steps": stats.get("wave_steps", 0), "compactions": stats.get("wave_compactions", 0),
     }
 
@@ -1708,7 +1891,7 @@ def paired_check(dev, seed=SEED + 11, n_pairs=1500):
 def mixed_lengths_check(dev, seed=SEED + 13, genome_len=6000, n_reads=1800):
     """Reads of 100 bases, about half trimmed by 1-20: coverage (both strands
     and the start/end events) of windows along the genome takes the general
-    route (probe_ranges through rank, then chain_window), launches both
+    route (probe_ranges through push_front, then chain_window), launches both
     kernels and equals that of a CPU copy of the store and the readmap."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
@@ -1731,8 +1914,8 @@ def mixed_lengths_check(dev, seed=SEED + 13, genome_len=6000, n_reads=1800):
     got = rm._coverage_full(windows, wlens)
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     require_equal("coverage, general route, card vs CPU copy", tuple(x.cpu() for x in got), rm.to("cpu")._coverage_full(windows, wlens))
-    if launches["rank"] == 0 or launches["chain_window"] == 0:
-        raise AssertionError(f"coverage's general route launched {launches}: no rank or no chain_window")
+    if launches["push_front"] == 0 or launches["chain_window"] == 0:
+        raise AssertionError(f"coverage's general route launched {launches}: no push_front or no chain_window")
     return {"read_lengths": [rm.min_read_len, rm.max_read_len], "windows": len(windows),
             "read_ends_counted": int(got[3].sum()), "coverage_launches": {k: v for k, v in launches.items() if v}}
 
@@ -1794,9 +1977,9 @@ def scored_calls(ss, rm, reference, want, name, **constants):
 
 
 def dense_kernel_holds(ss, reference):
-    """The dense front end's first batch replayed with rank held against its
-    plain version at every step of the restart chain (1 M lanes a step) and
-    push4 on the dense anchor scan's lanes."""
+    """The dense front end's first batch replayed with push_front held
+    against its plain version at every step of the restart chain (1 M lanes
+    a step) and push4 on the dense anchor scan's lanes."""
     opt = disc.DiscoverOptions(**DISCOVER_OPT)
     dev = ss.device
     held = HeldEngine(ss.d)
@@ -1808,16 +1991,16 @@ def dense_kernel_holds(ss, reference):
     lane = torch.arange(P, device=dev)
     n_raw, _ = disc._anchor_scan_at(held, ref2_dev, p0 + lane, b, e, s, opt.min_anchor_ctx, opt.min_branch_width,
                                     torch.full_like(lane, min(seg_hi, p0 + P)))
-    if not held.held["rank"] or not held.held["push4"]:
+    if not held.held["push_front"] or not held.held["push4"]:
         raise AssertionError(f"the replayed dense front end never reached a kernel: {held.held}")
     return {"batches": len(batches), "lanes_a_batch": P, "first_batch_anchors": n_raw,
-            "rank_calls_by_lanes": held.held["rank"], "push4_calls_by_lanes": held.held["push4"]}
+            "push_front_calls_by_lanes": held.held["push_front"], "push4_calls_by_lanes": held.held["push4"]}
 
 
 def discover_dense_phase(ss, rm, reference, want):
     """The scored call with the dense front end forced (``NO_PRESCREEN``),
-    cold and warm, its records held to the JAX CPU leg's; then rank and
-    push4 held against their plain versions on the dense route's lanes."""
+    cold and warm, its records held to the JAX CPU leg's; then push_front
+    and push4 held against their plain versions on the dense route's lanes."""
     out, _ = scored_calls(ss, rm, reference, want, "dense front end", NO_PRESCREEN=True)
     out["holds"], out["holds"]["seconds"] = timed(lambda: dense_kernel_holds(ss, reference))
     out["holds"]["max_abs_err"] = 0
@@ -1863,7 +2046,9 @@ def widen_checks(ss, ss_cpu, found):
         ("push_front_drop_min_ctx_60", lambda d, r, b: d.push_front_drop(r, b, min_ctx=60)),
     ]
     for name, fn in calls:
+        before = rank4_ops.rank.launches
         got, out[name + "_s"] = timed(lambda: fn(d, found, bases.to(dev)))
+        out[name + "_rank_launches"] = rank4_ops.rank.launches - before
         t0 = time.perf_counter()
         want = fn(dc, cpu, bases)
         out[name + "_cpu_s"] = time.perf_counter() - t0
@@ -1939,7 +2124,7 @@ def sdk_checks(dev, ss, rm, codes, genome):
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
 COVERAGE_FILE = os.path.join(DATA, "torch_scaled_leg_coverage.tsv")
 MODEL_FILE = os.path.join(DATA, "torch_scaled_leg_qual_model.npz")
-COVERAGE_KERNELS = ("rank", "chain_window")  # coverage's general route
+COVERAGE_KERNELS = ("push_front", "chain_window")  # coverage's general route
 PROB_TOL = 1e-5  # the classifier's probabilities against the JAX CPU leg's file (float32 here, float64 there)
 TRAIN_TOL = 1e-4  # training on the card against the same training on a CPU copy
 TRIMMED = dict(n_pairs=120_000, n_het=3000, n_hom=1000, n_indel=200)
@@ -1978,21 +2163,20 @@ def step_clock():
 
 @contextlib.contextmanager
 def held_kernels():
-    """rank and chain_window, as coverage's general route calls them
+    """push_front and chain_window, as coverage's general route calls them
     (``Seqset.d`` and ``probes``), each held against its plain version on
     the very tensors it is handed, at every call, while the block runs:
     yields {kernel: {lanes: calls}}."""
-    held = {"rank": {}, "chain_window": {}}
-    real_rank, real_chain = rank4_ops.rank, probes.chain_window
+    held = {"push_front": {}, "chain_window": {}}
+    real_push, real_chain = rank4_ops.push_front, probes.chain_window
 
     def count(kernel, lanes):
         held[kernel][lanes] = held[kernel].get(lanes, 0) + 1
 
-    def rank(blocks, b, pos, pos_end=None):
-        got = real_rank(blocks, b, pos, pos_end)
-        want = tuple(rank4_ops.rank_blocks_plain(blocks, b, p) for p in ((pos,) if pos_end is None else (pos, pos_end)))
-        require_equal(f"rank in coverage, {b.numel()} lanes", got if pos_end is not None else (got,), want)
-        count("rank", b.numel())
+    def push_front(*args):
+        got = real_push(*args)
+        require_equal(f"push_front in coverage, {args[3].numel()} lanes", got, rank4_ops.push_front_blocks_plain(*args))
+        count("push_front", args[3].numel())
         return got
 
     def chain_window(*args):
@@ -2001,12 +2185,12 @@ def held_kernels():
         count("chain_window", args[3].shape[0])
         return got
 
-    rank.launches = 0  # the wrapped rank counts its launches here while the block runs
+    push_front.launches = 0  # the wrapped push_front counts its launches here while the block runs
     try:
-        rank4_ops.rank, probes.chain_window = rank, chain_window
+        rank4_ops.push_front, probes.chain_window = push_front, chain_window
         yield held
     finally:
-        rank4_ops.rank, probes.chain_window = real_rank, real_chain
+        rank4_ops.push_front, probes.chain_window = real_push, real_chain
 
 
 def run_coverage_counted(bg, reference, vcf_in, vcf_out, feats_out, stage=None, **kw):
@@ -2145,7 +2329,7 @@ def coverage_trimmed_phase(dev, genome, tmp, trimmed=TRIMMED, region_records=REG
     (``trimmed_paired_library``): the store and the readmap built with
     mate_of on the card; discover_variants with the readmap and the pair
     gate; run_coverage (pairs, phasing, the joint graph) of its VCF, which
-    must launch rank and chain_window (coverage's general route); over a
+    must launch push_front and chain_window (coverage's general route); over a
     region of region_records records the annotated VCF and features equal to
     the same call on a CPU copy of the store and readmap; genotypes against
     the truth; train_classifier on the card against the truth labels, its
@@ -2438,7 +2622,7 @@ def create_partitioned_full_phase(dev, bytes_per_row, budget=None):
             if not bool((found.valid & (found.size == READ_LEN)).all()):
                 raise AssertionError("a sampled read of the whole-genome leg was not found")
             out["found"] = SAMPLED
-            out["rank_launches_find"] = found_launches["rank"]
+            out["push_front_launches_find"] = found_launches["push_front"]
             del rm, found
             ss.__dict__.pop("_entry_cache", None)
         else:
@@ -2629,10 +2813,10 @@ PIPELINE_FLAGS = ["--paired", "--correct"]
 PIPELINE_ARGS = [*PIPELINE_FLAGS, "--classifier-model", "tests/data/torch_scaled_leg_qual_model.npz"]
 PIPELINE_VCFS = ("discovery", "coverage", "grm", "results")
 PIPELINE_STAGES = ("create", "discovery", "coverage", "grm", "qual_classifier")
-PIPELINE_KERNELS = ("rank_cum", "push4", "rank", "chain_window")
+PIPELINE_KERNELS = ("rank_cum", "push4", "push_front", "chain_window")
 # the kernels each stage of the cold run must call, each call kept held
 # against its plain version
-PIPELINE_HOLDS = {"create": ("rank_cum",), "discovery": ("push4", "rank", "chain_window"), "coverage": ("rank", "chain_window")}
+PIPELINE_HOLDS = {"create": ("rank_cum",), "discovery": ("push4", "push_front", "chain_window"), "coverage": ("push_front", "chain_window")}
 BWT_QUERIES, BWT_ABSENT = 1 << 16, 4096
 
 
@@ -2648,6 +2832,7 @@ PIPELINE_CALL_SITES = {
     "rank_cum": ("biograph_tpu_torch.build.seqset_build", "rank_cum", rank_cum_ops.rank_cum_plain, (), 0),
     "push4": ("biograph_tpu_torch.ops.rank4", "push4", rank4_ops.push4_plain, (0, 1, 2), 3),
     "rank": ("biograph_tpu_torch.ops.rank4", "rank", _plain_rank, (0,), 1),
+    "push_front": ("biograph_tpu_torch.ops.rank4", "push_front", rank4_ops.push_front_blocks_plain, (0, 1, 2), 3),
     "chain_window": ("biograph_tpu_torch.index.probes", "chain_window", rank4_ops.chain_window_plain, (0, 1, 2), 4),
 }
 
@@ -3648,11 +3833,11 @@ EXPORT_REGION = (0, 100_000)  # part (d): the truth VCF's records here, card aga
 UNMAPPED_EVERY = 29  # part (a): a read an aligner left unmapped, besides those place_reads cannot place
 EXTRA_EVERY = 50  # part (a): a secondary and a supplementary copy of every 50th read
 # the kernel calls leg 5 keeps (see PIPELINE_CALL_SITES): the build's
-# rank_cum, the .bg importer's, and rank under find
+# rank_cum, the .bg importer's, and push_front under find
 FORMATS_CALL_SITES = {
     "rank_cum": PIPELINE_CALL_SITES["rank_cum"],
     "rank_cum_import": ("biograph_tpu_torch.io.bgimport", "rank_cum", rank_cum_ops.rank_cum_plain, (), 0),
-    "rank": PIPELINE_CALL_SITES["rank"],
+    "push_front": PIPELINE_CALL_SITES["push_front"],
 }
 # leg 5's block ids (see _CRAM_INT_SERIES) and their methods; rANS only on
 # series whose bytes stay below 255
@@ -3789,7 +3974,7 @@ def formats_bg_part(dev, tmp, leg3_bgt, want, codes, lengths):
     """(c): leg 3's store as a .bg dir (v1.1, the least widths): opened with
     BioGraph on the card (one rank_cum launch, held against its plain
     version), upgraded to a .bgt equal to leg 3's, and BG_QUERIES finds
-    equal on the .bg store and the .bgt store, their rank calls held."""
+    equal on the .bg store and the .bgt store, their push_front calls held."""
     from biograph_tpu_torch import cli
     from biograph_tpu_torch.api import BioGraph
     from biograph_tpu_torch.convert import seqset_to_numpy
@@ -3806,7 +3991,7 @@ def formats_bg_part(dev, tmp, leg3_bgt, want, codes, lengths):
     _, write_s = timed(lambda: write_bg_dir(bg_dir, ss_np, rm_np, bits=bits))
     del ss, rm
     stage = ["import"]
-    sites = {k: FORMATS_CALL_SITES[k] for k in ("rank_cum_import", "rank")}
+    sites = {k: FORMATS_CALL_SITES[k] for k in ("rank_cum_import", "push_front")}
     with kept_calls(sites, stage) as kept:
         (bg, import_launches), import_s = timed(lambda: launched(lambda: BioGraph(bg_dir, device=dev)))
         if import_launches["rank_cum"] != int(dev.type == "cuda"):  # a CPU tensor takes the plain version
@@ -3939,7 +4124,7 @@ def formats_phase(dev, genome, tmp, leg3_bgt):
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     out["holds"] = hold_calls({**kept_a, **kept_c}, FORMATS_CALL_SITES, "leg 5's")
     out["holds_max_abs_err"] = 0
-    for label, kernel in (("create_bam", "rank_cum"), ("import", "rank_cum_import"), ("find_bg", "rank"), ("find_bgt", "rank")):
+    for label, kernel in (("create_bam", "rank_cum"), ("import", "rank_cum_import"), ("find_bg", "push_front"), ("find_bgt", "push_front")):
         if kernel not in out["holds"].get(label, {}):
             raise AssertionError(f"formats: {label} made no {kernel} call")
     return out, launches
@@ -3954,7 +4139,7 @@ TOOLS_PED = "leg6\tproband\tfather\tmother\t1\t2\nleg6\tfather\t0\t0\t1\t1\nleg6
 TOOLS_SEAM = 8  # hold (a)'s region: 8 walkable records each side of a seam between two of the card's coverage batches ...
 TOOLS_SV_BASES = 50  # ... and a walkable record with an allele of at least 50 bases (an SV)
 TOOLS_WIDEN = 2000  # the CPU copy is given the records up to 2 kb past the region's records on each side
-TOOLS_KERNELS = ("rank", "chain_window", "chain_fixed", "push4")
+TOOLS_KERNELS = ("push_front", "chain_window", "chain_fixed", "push4")
 
 
 def _plain_chain_fixed(blocks, entry_sizes, fixed, text, depth):
@@ -3965,7 +4150,7 @@ def _plain_chain_fixed(blocks, entry_sizes, fixed, text, depth):
 # the kernels coverage calls in leg 6 (see PIPELINE_CALL_SITES), each call
 # kept under the sample whose readmap made it
 TOOLS_CALL_SITES = {
-    "rank": PIPELINE_CALL_SITES["rank"],
+    "push_front": PIPELINE_CALL_SITES["push_front"],
     "chain_window": PIPELINE_CALL_SITES["chain_window"],
     "chain_fixed": ("biograph_tpu_torch.ops.rank4", "chain_fixed", _plain_chain_fixed, (0, 1, 2), 3),
 }
@@ -4135,9 +4320,10 @@ def tools_region_check(tmp, stores, fa, ped, names, card_vcf, window, widened):
 
 def coverage_route(kept, name):
     """The route a sample's coverage took, by the kernels its calls reached
-    (``kept_calls``): rank (probe_ranges) on the general route, chain_fixed
-    on the uniform route without the hash, neither on the hash route."""
-    if (name, "rank") in kept:
+    (``kept_calls``): push_front (probe_ranges) on the general route,
+    chain_fixed on the uniform route without the hash, neither on the hash
+    route."""
+    if (name, "push_front") in kept:
         return "general"
     return "chain_fixed" if (name, "chain_fixed") in kept else "hash"
 
@@ -4180,7 +4366,7 @@ def tools_cli_checks(tmp, annotated, names):
 def tools_phase(dev, tmp, stores, vcfs, fa, **window):
     """Leg 6: ``pvcf_pipe --device <dev>`` through the port's CLI over three
     stores and their VCFs, cold, each sample's coverage timed and its
-    rank, chain_window and chain_fixed calls kept; holds (a)-(d) (the
+    push_front, chain_window and chain_fixed calls kept; holds (a)-(d) (the
     docstring of this script), (a) over ``tools_window(union, **window)``.
     Returns (what to print, the kernels' launches in the pvcf_pipe call)."""
     from biograph_tpu_torch import cli
@@ -4460,6 +4646,8 @@ def main():
 
     checks, seconds = timed(lambda: check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed))
     say(phase="checks", ok=True, seconds=seconds, **checks)
+    (finds, find_step), seconds = timed(lambda: find_checks(dev, ss, codes, lengths, found))
+    say(phase="find_checks", ok=True, card=card, seconds=seconds, **finds)
 
     # variant discovery on the store just built and loaded: the counts of its
     # kernels are set to 0 before each call and read after it
@@ -4562,7 +4750,7 @@ def main():
     probe_m_mixed = bisection_lengths(ss.d, text, probe_pos, torch.zeros_like(probe_pos), DEPTH, 3)
     breakdown = profile_to is not None
     launches["chain_fixed"] = chain_fixed_launches
-    rows = kernel_table(ss, launches, found, text, probe_pos, probe_m, probe_m_mixed, cov_slab, breakdown)
+    rows = kernel_table(ss, launches, found, find_step, text, probe_pos, probe_m, probe_m_mixed, cov_slab, breakdown)
     for r in rows:
         r["launches_discover"] = found_by["warm"]["launches"][r["name"]]
         r["launches_discover_scored"] = scored["warm"]["launches"][r["name"]]

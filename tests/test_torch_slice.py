@@ -218,6 +218,9 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
     assert stats["n_entries"] == ss.n_entries > 8000 and stats["probe_positions"] == 16000
     out = chip_smoke.check_results(dev, genome, codes, ss, found, ranked, pushed, text, probed, depth=16, sample=200, host_sample=60)
     assert out == {"sampled_lanes": 200, "host_checked_windows": 60}
+    finds, (step, bases) = chip_smoke.find_checks(dev, ss, codes, lengths, found)
+    assert step.begin.shape == bases.shape == (1200,) and bool(step.valid.all())
+    assert finds["push_front_calls_by_lanes"] == {"1200": 100} and finds["device_ops"] is None  # no profiler without a card
     # discovery on the same store, held to the genome, the planted SNPs and a region
     reference = chip_smoke.reference_from_numpy(genome, np.zeros(8000, bool), [("chr1", 0, 8000)])
     monkeypatch.setattr(chip_smoke, "REGION", (0, 4096))
@@ -234,7 +237,7 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
         chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, records[:1], snp, donor, starts, 100)
     holds = chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"])
     assert holds["anchors"] == dstats["anchors_found"] > 0 and len(holds["chain_window_mean_m"]) == 4
-    assert holds["rank_calls_by_lanes"] and sum(holds["push4_calls_by_lanes"].values()) == 1 + holds["beam_steps"]
+    assert holds["push_front_calls_by_lanes"] and sum(holds["push4_calls_by_lanes"].values()) == 1 + holds["beam_steps"]
     with pytest.raises(AssertionError, match="the replayed front end found"):
         chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"] + 1)
     small = chip_smoke.small_genome_checks(dev)
@@ -275,12 +278,12 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
     assert chained["launches"] == 1 and cov_depth == 100 and chained["lanes"] == cov_text.shape[0] and chained["read_ends_counted"] > 0
     paired = chip_smoke.paired_check(dev)
     assert paired["strict_gate_pair_gated"] >= 1 and paired["proper_pairs"] > 0
-    with pytest.raises(AssertionError, match="no rank or no chain_window"):  # CPU tensors launch nothing
+    with pytest.raises(AssertionError, match="no push_front or no chain_window"):  # CPU tensors launch nothing
         chip_smoke.mixed_lengths_check(dev)
     # the dense front end and the wavefront without trunc tables give the same records
     dense = chip_smoke.discover_dense_phase(ss, rm, scored_reference, want)
     assert dense["records"] == len(want) and "probe_dispatch" in dense["warm"]["stage_s"]
-    assert dense["holds"]["rank_calls_by_lanes"] == {8192: 25} and sum(dense["holds"]["push4_calls_by_lanes"].values()) == 1
+    assert dense["holds"]["push_front_calls_by_lanes"] == {8192: 25} and sum(dense["holds"]["push4_calls_by_lanes"].values()) == 1
     with pytest.raises(AssertionError, match="the JAX CPU leg"):
         chip_smoke.discover_dense_phase(ss, rm, scored_reference, want[1:])
     assert not chip_smoke.disc.NO_PRESCREEN  # restored after a failure too
@@ -423,8 +426,8 @@ def test_chip_smoke_coverage_legs_at_toy_size_on_the_cpu(monkeypatch, tmp_path):
     assert out["truth"]["het_right"] >= chip_smoke.HET_FLOOR and out["truth"]["hom_right"] >= chip_smoke.HOM_FLOOR
     assert out["truth"]["pc_positive"] > 0.9 and out["classifier"]["max_abs_err_card_vs_cpu"] <= chip_smoke.TRAIN_TOL
     assert set(out["steps_s"]) == {"annotate_coverage", "annotate_pair_coverage", "phase_records", "evaluate_vargraph"}
-    assert out["kernel_holds"]["rank"] and out["kernel_holds"]["chain_window"]
-    assert chip_smoke.rank4_ops.rank is chip_smoke.WRAPPERS["rank"] and chip_smoke.probes.chain_window is chip_smoke.WRAPPERS["chain_window"]
+    assert out["kernel_holds"]["push_front"] and out["kernel_holds"]["chain_window"]
+    assert chip_smoke.rank4_ops.push_front is chip_smoke.WRAPPERS["push_front"] and chip_smoke.probes.chain_window is chip_smoke.WRAPPERS["chain_window"]
     assert len(again().gt) == out["vcf_records"]
     with pytest.raises(AssertionError, match="real-size floor"):
         chip_smoke.coverage_trimmed_phase(dev, genome2, str(tmp_path / "leg2b"), trimmed=small)

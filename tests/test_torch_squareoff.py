@@ -323,7 +323,7 @@ def test_chip_smoke_tools_leg_at_toy_size_on_the_cpu(world, tmp_path, monkeypatc
     """Leg 6 of ``chip_smoke.py`` rehearsed on CPU tensors on the trio's
     port stores (the kernel wrappers take their plain versions there, and
     the kept calls are held all the same): pvcf_pipe through the CLI, the
-    kept rank and chain_window calls of the general route, the union and
+    kept push_front and chain_window calls of the general route, the union and
     the PED's columns, a region across a seam of coverage batches of 2
     records against the CPU copy (the trio has no SV, so any walkable
     record stands for one), the tools and vdb through the CLI.  A card VCF
@@ -336,7 +336,7 @@ def test_chip_smoke_tools_leg_at_toy_size_on_the_cpu(world, tmp_path, monkeypatc
     assert out["union_records"] == 6 and not any(launches.values())
     assert {s: v["route"] for s, v in out["samples"].items()} == {"proband": "hash", "father": "hash", "mother": "general"}
     assert all(v["records"] == 6 for v in out["samples"].values())
-    assert set(out["kernel_holds"]) == {"mother"} and set(out["kernel_holds"]["mother"]) == {"rank", "chain_window"}
+    assert set(out["kernel_holds"]) == {"mother"} and set(out["kernel_holds"]["mother"]) == {"push_front", "chain_window"}
     # the union: 800, 1200, 2800 (<DEL>, not walked), 3001, 4500, 5200; batches of its walkable records 800 1200 | 3001 4500 | 5200
     region = {k: out["region"][k] for k in ("chrom", "from", "to", "seam_pos", "records", "widened_from", "widened_to", "widened_records")}
     assert region == {"chrom": "chr1", "from": 4500, "to": 5200, "seam_pos": 5200, "records": 2,
