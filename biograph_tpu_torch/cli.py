@@ -24,7 +24,11 @@ runs one process a card: each is started with the same arguments and its
 own ``--process-id`` (``--coordinator``, ``--num-processes``: the JAX
 package reads these from ``BGT_*`` variables), the wavefront region-sharded
 and the SV pass read-sliced through ``parallel/discovery.py``, and process 0
-writes the outputs.
+writes the outputs.  Every subcommand takes ``--profile DIR``, where the JAX
+package reads ``BGT_PROFILE``: the command is traced, host and device, into
+``DIR/<subcommand>.json`` (``runtime/log.maybe_profile``), discovery itself
+and each stage of ``full_pipeline`` a range inside it; a process of a
+distributed discovery writes ``DIR/discovery.p<process-id>.json``.
 
 Stage timings are read after the device has finished the stage.
 """
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from biograph_tpu_torch import resolve_device, version
+from biograph_tpu_torch.runtime.log import maybe_profile
 
 BIOGRAPH_VERSION = "biograph_tpu_torch-0.1"
 
@@ -378,10 +383,12 @@ def _discovery_assemble(args, ref, dev):
         # region-sharded over the run's processes (parallel/discovery.py)
         from biograph_tpu_torch.parallel.discovery import discover_variants_distributed
 
-        recs = discover_variants_distributed(bg.seqset, ref, args.dist_dir, region=region, opt=opt, readmap=bg.readmap, stats=stats)
+        with maybe_profile("discovery", args.profile):
+            recs = discover_variants_distributed(bg.seqset, ref, args.dist_dir, region=region, opt=opt, readmap=bg.readmap, stats=stats)
     else:
         asm_dump = [] if args.assemblies_out else None
-        recs = discover_variants(bg.seqset, ref, region=region, opt=opt, readmap=bg.readmap, out_assemblies=asm_dump, stats=stats)
+        with maybe_profile("discovery", args.profile):
+            recs = discover_variants(bg.seqset, ref, region=region, opt=opt, readmap=bg.readmap, out_assemblies=asm_dump, stats=stats)
         if asm_dump is not None:
             n = write_assembly_csv(args.assemblies_out, ref, asm_dump)
             print(f"assemblies: {n} -> {args.assemblies_out}")
@@ -639,16 +646,25 @@ def cmd_full_pipeline(args):
                 "--sample", args.sample, "--features", feats]
     grm = ["grm", "--vcf", vcf["coverage"], "--ref", args.ref, "--out", vcf["grm"], "--sample", args.sample, "--k", "50",
            "--cache-dir", os.path.join(out, "cache")]
+
+    def stage(argv):
+        """A stage: the subcommand argv[0], a range of full_pipeline's trace."""
+        def run(runner):
+            with maybe_profile(argv[0], args.profile):
+                main(argv + dev)
+
+        return run
+
     stages = [
-        Stage(name="create", outputs=[os.path.join(bgt, "metadata.json")], fn=lambda r: main(create + dev)),
-        Stage(name="discovery", outputs=[vcf["discovery"]], fn=lambda r: main(discovery + dev)),
-        Stage(name="coverage", outputs=[vcf["coverage"]], fn=lambda r: main(coverage + dev)),
-        Stage(name="grm", outputs=[vcf["grm"]], fn=lambda r: main(grm + dev)),
+        Stage(name="create", outputs=[os.path.join(bgt, "metadata.json")], fn=stage(create)),
+        Stage(name="discovery", outputs=[vcf["discovery"]], fn=stage(discovery)),
+        Stage(name="coverage", outputs=[vcf["coverage"]], fn=stage(coverage)),
+        Stage(name="grm", outputs=[vcf["grm"]], fn=stage(grm)),
     ]
     if args.classifier_model:
         qual = ["qual_classifier", "--vcf", vcf["grm"], "--features", feats, "--model", args.classifier_model,
                 "--out", vcf["results"], "--min-prob", "0.5", "--sample", args.sample]
-        stages.append(Stage(name="qual_classifier", outputs=[vcf["results"]], fn=lambda r: main(qual + dev)))
+        stages.append(Stage(name="qual_classifier", outputs=[vcf["results"]], fn=stage(qual)))
 
     runner = StageRunner(out, resume=args.resume)
     stopped = runner.run(stages, stop_after=args.stop, rerun=args.rerun, verbose=True)
@@ -1488,9 +1504,15 @@ def main(argv=None):
     x.add_argument("study_name")
     x.add_argument("--checkpoint", type=int, help="target (default: back one)")
     pv.set_defaults(fn=cmd_vdb)
+    for sp in sub.choices.values():
+        sp.add_argument("--profile", metavar="DIR",
+                        help="trace the command, host and device, into DIR/<command>.json (Perfetto, chrome://tracing)")
 
     args = p.parse_args(argv)
-    args.fn(args)
+    # one file a process where several run one command
+    process = args.process_id if getattr(args, "dist_dir", None) and args.num_processes > 1 else None
+    with maybe_profile(args.cmd, args.profile, process):
+        args.fn(args)
 
 
 if __name__ == "__main__":

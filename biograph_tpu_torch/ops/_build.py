@@ -17,6 +17,11 @@ directory its user may write to (a checkout or an editable install).
 
 ``build_all`` starts one ``nvcc`` per source at once, so a cold start pays
 the slowest single build rather than their sum.
+
+``traced`` marks each kernel wrapper's calls in a ``runtime.log.maybe_profile``
+trace: a launch on the card, or the plain version on the CPU, is one range
+named ``bgt::<wrapper>``, so the trace names the host side of each launch
+(the device side carries the ``__global__`` function's name).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from biograph_tpu_torch.runtime import log as _log
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -165,6 +172,28 @@ def launch(kernel: str, symbol: str, argtypes, device, *args):
         code = fn(*args, stream)
     if code != 0:
         raise RuntimeError(f"{symbol}: CUDA launch failed with error code {code}")
+
+
+def traced(label: str, lanes: int):
+    """Decorator of a kernel wrapper: while a trace is open, a call whose
+    argument ``lanes`` (by position) holds elements runs inside a profiler
+    range named ``bgt::<label>``; a call without elements launches nothing
+    and gets no range.  Outside a trace a call costs one attribute read."""
+    name = _log.RANGE_PREFIX + label
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _log.tracing or args[lanes].numel() == 0:
+                return fn(*args, **kwargs)
+            from torch.profiler import record_function
+
+            with record_function(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 def ptr(t) -> ctypes.c_void_p:

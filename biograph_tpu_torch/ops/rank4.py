@@ -51,7 +51,9 @@ against; no query reads it.  The kernels take ``__popc`` of the bits; the
 plain versions widen to int64, mask with ``& 0xFFFFFFFF`` and count by SWAR.
 
 Each wrapper takes its plain version only for CPU tensors; CUDA tensors
-launch the kernel or raise.  ``<wrapper>.launches`` counts launches.
+launch the kernel or raise.  ``<wrapper>.launches`` counts launches.  In a
+``runtime.log.maybe_profile`` trace each call with lanes is a range named
+``bgt::<wrapper>`` (``_build.traced``).
 """
 
 from __future__ import annotations
@@ -385,6 +387,7 @@ def _check_cuda(name, ref, *tensors):
             )
 
 
+@_build.traced("rank4", 1)
 def rank4(blocks, pos) -> torch.Tensor:
     """All-four-bases rank at each position: int32 [B, 4].
 
@@ -413,6 +416,7 @@ def rank4(blocks, pos) -> torch.Tensor:
 rank4.launches = 0
 
 
+@_build.traced("rank", 1)
 def rank(blocks, b, pos, pos_end=None):
     """The rank of prev[base b] at positions pos, one base a query: int64 of
     pos's shape, from the same table and the same source as ``rank4``.  With
@@ -516,6 +520,7 @@ def tile_buckets_kernel(tiles: Rank4Tiles, pos):
     return recs[:, 1], recs[:, 0], bt, blk_first, q_first, q_count
 
 
+@_build.traced("rank4_tiled", 1)
 def rank4_tiled(tiles: Rank4Tiles, pos) -> torch.Tensor:
     """All-four-bases rank at each position against the tiled table: int32
     [B, 4], the same values as ``rank4`` on the structure the table was
@@ -548,6 +553,7 @@ def rank4_tiled(tiles: Rank4Tiles, pos) -> torch.Tensor:
 rank4_tiled.launches = 0
 
 
+@_build.traced("gather_sizes", 1)
 def gather_sizes(entry_sizes, idx) -> torch.Tensor:
     """entry_sizes[idx], exact: int32 of idx's shape.
 
@@ -600,6 +606,7 @@ def _check_push(name, blocks, entry_sizes, fixed, begin, end, size, *bases):
         raise ValueError(f"{name}: entry_sizes is empty")
 
 
+@_build.traced("push4", 3)
 def push4(blocks, entry_sizes, fixed, begin, end, size):
     """The children of each range for all four pushed bases, in one launch:
     (begin4, end4) int64 [B, 4], column b the (begin, end) of
@@ -634,6 +641,7 @@ def push4(blocks, entry_sizes, fixed, begin, end, size):
 push4.launches = 0
 
 
+@_build.traced("push_front", 3)
 def push_front(blocks, entry_sizes, fixed, begin, end, size, b):
     """One push_front step of each range, in one launch: (begin, end, size)
     of push_front((begin, end, size), b), int64, int64 and int32 [B].  A range
@@ -666,6 +674,7 @@ def push_front(blocks, entry_sizes, fixed, begin, end, size, b):
 push_front.launches = 0
 
 
+@_build.traced("chain_window", 4)
 def chain_window(blocks, entry_sizes, fixed, win, m, depth: int):
     """find_window over pre-built complemented window rows, the whole chain
     in one launch.
@@ -689,6 +698,7 @@ def contig_windows(text: torch.Tensor, depth: int) -> torch.Tensor:
     return (3 - padded.unfold(0, depth, 1)[:P]).to(torch.uint8).contiguous()
 
 
+@_build.traced("chain_fixed", 3)
 def chain_fixed(blocks, entry_sizes, fixed, text, depth: int):
     """(begin, end, size) of the depth-length window ending at every text
     position: the ``chain_window`` kernel over the contiguous windows, one

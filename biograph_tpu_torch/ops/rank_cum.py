@@ -42,6 +42,7 @@ def tiles_per_row(nw: int) -> int:
     return -(-(nw + 3) // TILE_WORDS)
 
 
+@_build.traced("rank_cum", 0)
 def rank_cum(words: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix popcount per word, along the last dimension: int32
     [nw] or [R, nw] -> int32 of the same shape, every row scanned on its

@@ -5,9 +5,13 @@ progress_handler, modules/io/log.h:13-24, modules/io/progress.h): one
 module-level logger (timestamped, level-tagged, optionally teed to a file)
 and a Progress tree whose stages report fraction and wall time.
 
-The JAX package's ``maybe_profile`` (a JAX-profiler switch read from the
-environment) is not ported, and the log level is an argument, not the
-``BGT_LOG_LEVEL`` variable.
+``maybe_profile(tag, out_dir)`` is the JAX package's per-command device
+trace with an argument where that package reads ``BGT_PROFILE_DIR``: a
+``torch.profiler`` trace of the block, host and device, written as a
+Chrome trace to ``<out_dir>/<tag>.json`` (Perfetto, ``chrome://tracing``).
+While it is open, ``tracing`` is true and each kernel wrapper of ``ops/``
+marks its calls as ranges named ``bgt::<wrapper>``.  The log level is an
+argument, not the ``BGT_LOG_LEVEL`` variable.
 """
 
 from __future__ import annotations
@@ -66,6 +70,52 @@ class Logger:
 
 
 LOG = Logger()
+
+RANGE_PREFIX = "bgt::"  # the kernel wrappers' ranges in a trace
+tracing = False  # a maybe_profile trace is open; set by maybe_profile alone
+
+
+@contextmanager
+def maybe_profile(tag: str, out_dir: Optional[str] = None, process_id: Optional[int] = None):
+    """Trace the block into ``<out_dir>/<tag>.json`` (``<tag>.p<process_id>
+    .json`` for one process of several): ``torch.profiler`` over the host
+    and, where CUDA is available, the device, the block one range named
+    ``tag``.  Without ``out_dir`` it does nothing.  Inside an open trace it
+    only adds the range: the profiler does not nest.  The device is drained
+    before the trace stops, so the block's last kernels are in it; a block
+    that raises stops the profiler and writes nothing."""
+    global tracing
+    if out_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if tracing:
+        with record_function(tag):
+            yield
+        return
+    name = tag if process_id is None else f"{tag}.p{process_id}"
+    path = os.path.join(out_dir, name + ".json")
+    os.makedirs(out_dir, exist_ok=True)
+    # CUDA is asked for whether or not the block has touched the card yet:
+    # a command initialises CUDA inside its trace
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    tracing = True
+    try:
+        with record_function(tag):
+            yield
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+    finally:
+        tracing = False
+        prof.stop()
+    prof.export_chrome_trace(path)
+    print(f"trace of {tag} -> {path}", file=sys.stderr)  # stdout may be a command's output
 
 
 @dataclass

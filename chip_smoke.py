@@ -109,6 +109,16 @@ its first two blocks of steps under torch.profiler.  The FM-index of the genome 
 built on the card and on the CPU, equal to each other and to the file's
 digests, and 65 536 substrings and 4096 random 40-mers are found and
 located on both.  The planted SVs' recall by class is printed, not gated.
+Then the per-command trace (``trace``): ``cli.main(["discovery", ...])``
+over leg 4's store and FASTA, the wavefront alone (``--no-sv``) over a
+region around the smallest planted SV, once as it is and once with
+``--profile DIR``.  The two VCFs must be byte-equal; the trace must parse,
+one range named ``discovery`` must span every other event, each wrapper's
+``bgt::<wrapper>`` ranges must equal its launches in the traced call, the
+device events of ``push4``'s, ``push_front``'s and ``chain_window``'s
+``__global__`` functions (read from ``csrc/``) their launches times the
+kernels a launch makes, and every other kernel of the trace must be
+launched from inside one of PyTorch's own operators.
 Leg 5 (``formats``) is every read and archive format the product reads.
 (a) Leg 3's 240 000 reads, placed on the genome by ``place_reads`` as an
 aligner would (a reverse-strand read stored reverse-complemented, unplaced
@@ -183,17 +193,20 @@ engine build and cold call).
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import importlib
 import inspect
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -3198,7 +3211,7 @@ def pipeline_sv_phase(dev, genome, tmp, library=None, want=None):
     run no stage and leave results.vcf as it was, and ``--rerun`` of each
     stage in turn (its warm seconds), each output again equal to the file.
     Returns (what to print, the cold run's launches, the run's dir, the
-    FASTA, the truth)."""
+    FASTA, the planted SVs as the truth lists them)."""
     from biograph_tpu_torch import cli
 
     want = want or read_pipeline_leg_file()
@@ -3242,7 +3255,154 @@ def pipeline_sv_phase(dev, genome, tmp, library=None, want=None):
         require_pipeline(f"pipeline_sv --rerun {stage}", out_dir, want)
     out["warm_stage_s"] = warm
     out["recall"] = sv_recall(read_vcf(results), truth)
-    return out, launches, out_dir, fa
+    return out, launches, out_dir, fa, truth["sv"]
+
+
+TRACE_KERNELS = ("push4", "push_front", "chain_window")  # what the traced discovery call must launch
+TRACE_FLANK = 10_000  # the traced region: the smallest planted SV and this many bases each side
+TRACE_SLACK_US = 100.0  # an event may overhang the command's range by this much (the device's clock mapped to the host's)
+ENTRY_SYMBOLS = {"chain_fixed": "bgt_chain_window"}  # C entry points not named bgt_<wrapper>
+
+
+def kernels_a_launch(wrapper):
+    """({__global__ function names}, kernels one launch makes) of a kernel
+    wrapper, read from its source in csrc/: the functions its C entry point
+    names, and the launch sites (``<<<``) in the entry's body."""
+    src = open(_build.source_path(SOURCES.get(wrapper, wrapper))).read()
+    symbol = ENTRY_SYMBOLS.get(wrapper, "bgt_" + wrapper)
+    start = src.index(f'extern "C" int {symbol}(')
+    body = src[start : src.index("\n}", start)]
+    names = {n for n in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src) if re.search(rf"\b{n}\b", body)}
+    if not names or "<<<" not in body:
+        raise AssertionError(f"{wrapper}: no kernel launch found in {symbol}")
+    return names, body.count("<<<")
+
+
+def kernel_function(name, ours):
+    """The one of ``ours`` (__global__ names) a device event's name is, or None."""
+    return next((n for n in ours if re.search(rf"(?<![\w:]){n}(?:<[^()]*>)?\(", name)), None)
+
+
+def trace_holds(path, command, launches, on_card):
+    """Checks (b)-(e) of a command's trace against the wrappers' launches in
+    the traced call: one range named ``command`` spans every other event;
+    each wrapper's ``bgt::`` ranges equal its launches (on the CPU, where
+    nothing launches, each of TRACE_KERNELS has a range); on the card the
+    device events of TRACE_KERNELS' functions equal their launches times
+    the kernels a launch makes, and every kernel is launched from inside a
+    PyTorch operator or, one of the port's, from inside a wrapper's range.
+    Returns what the ``trace`` line prints of the file."""
+    from biograph_tpu_torch.runtime.log import RANGE_PREFIX
+
+    events = json.load(open(path))["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    own = [e for e in spans if e.get("cat") == "user_annotation"]
+    tops = [e for e in own if e["name"] == command]
+    if not tops:
+        raise AssertionError(f"trace: no range named {command}")
+    top = max(tops, key=lambda e: e["dur"])
+    lo, hi = top["ts"], top["ts"] + top["dur"]
+    over = [(max(lo - e["ts"], e["ts"] + e["dur"] - hi), e["name"]) for e in spans
+            if e is not top and e.get("cat") not in ("Trace", "overhead")]
+    worst = max(over, default=(0.0, None))
+    if worst[0] > TRACE_SLACK_US:
+        raise AssertionError(f"trace: {worst[1]} lies {worst[0]:.1f} us outside the {command} range")
+    ranges = Counter(e["name"][len(RANGE_PREFIX):] for e in own if e["name"].startswith(RANGE_PREFIX))
+    if not set(ranges) <= set(WRAPPERS):
+        raise AssertionError(f"trace: ranges of no wrapper {sorted(set(ranges) - set(WRAPPERS))}")
+    out = {"bytes": os.path.getsize(path), "events": len(events), "ranges": dict(ranges), "overhang_us": worst[0], "overhang_event": worst[1]}
+    if not on_card:
+        missing = [k for k in TRACE_KERNELS if not ranges[k]]
+        if missing:
+            raise AssertionError(f"trace: no range of {missing}")
+        return out
+    wrong = {k: (ranges[k], n) for k, n in launches.items() if ranges[k] != n}
+    if wrong:
+        raise AssertionError(f"trace: ranges against launches differ {wrong}")
+    sites = {k: kernels_a_launch(k) for k in WRAPPERS}
+    ours = set().union(*(names for names, _ in sites.values()))
+    kernels = [e for e in spans if e.get("cat") == "kernel"]
+    fn_of = [kernel_function(k["name"], ours) for k in kernels]
+    device = Counter(fn_of)
+    for k in TRACE_KERNELS:
+        names, per_launch = sites[k]
+        n = sum(device[f] for f in names)
+        if n != launches[k] * per_launch:
+            raise AssertionError(f"trace: {n} device events of {k}'s {sorted(names)}, {launches[k]} launches of {per_launch}")
+    # every kernel's host launch, by correlation id, inside a PyTorch
+    # operator or (the port's) inside a wrapper's range of the same thread
+    host = {e["args"]["correlation"]: e for e in spans if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+
+    def intervals(sel):
+        by = {}
+        for e in spans:
+            if sel(e):
+                by.setdefault((e["pid"], e["tid"]), []).append((e["ts"], e["ts"] + e["dur"]))
+        table = {}
+        for key, iv in by.items():
+            iv.sort()
+            ends, m = [], float("-inf")
+            for _, b in iv:
+                m = max(m, b)
+                ends.append(m)
+            table[key] = ([a for a, _ in iv], ends)
+        return table
+
+    def inside(table, e):
+        starts, ends = table.get((e["pid"], e["tid"]), ([], []))
+        i = bisect.bisect_right(starts, e["ts"])
+        return i > 0 and ends[i - 1] >= e["ts"] + e["dur"]
+
+    ops = intervals(lambda e: e.get("cat") == "cpu_op")
+    wrapped = intervals(lambda e: e.get("cat") == "user_annotation" and e["name"].startswith(RANGE_PREFIX))
+    for k, fn in zip(kernels, fn_of):
+        launch = host.get(k.get("args", {}).get("correlation"))
+        if launch is None:
+            raise AssertionError(f"trace: kernel {k['name'][:80]} has no host launch")
+        if fn is None and not inside(ops, launch):
+            raise AssertionError(f"trace: kernel {k['name'][:80]} launched outside PyTorch's operators")
+        if fn is not None and (inside(ops, launch) or not inside(wrapped, launch)):
+            raise AssertionError(f"trace: the port's kernel {fn} launched outside its wrapper's range")
+    out["kernel_events"] = len(kernels)
+    out["port_kernel_events"] = sum(n for f, n in device.items() if f is not None)
+    return out
+
+
+def trace_argv(dev, bgt, fa, sv_events, flank=TRACE_FLANK):
+    """(the traced discovery command, its region, the SV it holds): the
+    wavefront alone over the smallest planted SV of ``sv_events`` ((class,
+    left, svlen) as ``sv_paired_library``'s truth gives them) and ``flank``
+    bases each side, on leg 4's store and FASTA."""
+    kind, left, svlen = min(sv_events, key=lambda e: (abs(e[2]), e[1]))
+    g = sum(len(line.strip()) for line in open(fa) if not line.startswith(">"))
+    lo, hi = max(0, left - flank), min(g, left + max(-svlen, 0) + flank)
+    argv = ["discovery", "--mode", "assemble", "--no-sv", "--biograph", bgt, "--ref", fa, "--min-depth", "5",
+            "--region", f"{SV_CHROM}:{lo}-{hi}", "--device", str(dev)]
+    return argv, (lo, hi), (kind, left, svlen)
+
+
+def trace_phase(dev, tmp, bgt, fa, sv_events, flank=TRACE_FLANK):
+    """The per-command trace: ``trace_argv``'s discovery call without and
+    then with ``--profile``: (a) the VCFs byte-equal, (b)-(e)
+    ``trace_holds``."""
+    from biograph_tpu_torch import cli
+
+    argv, (lo, hi), (kind, left, svlen) = trace_argv(dev, bgt, fa, sv_events, flank)
+    vcf, traced_vcf, trace_dir = (os.path.join(tmp, name) for name in ("trace_plain.vcf", "trace_traced.vcf", "trace"))
+    _, plain_s = timed(lambda: cli.main(argv + ["--out", vcf]))
+    (_, launches), traced_s = timed(lambda: counted(lambda: cli.main(argv + ["--out", traced_vcf, "--profile", trace_dir])))
+    missing = [k for k in TRACE_KERNELS if dev.type == "cuda" and launches[k] == 0]
+    if missing:
+        raise AssertionError(f"trace: the traced call launched no {missing} kernel")
+    if open(vcf, "rb").read() != open(traced_vcf, "rb").read():
+        raise AssertionError("trace: the traced call's VCF differs from the untraced call's")
+    if os.listdir(trace_dir) != ["discovery.json"]:
+        raise AssertionError(f"trace: {trace_dir} holds {os.listdir(trace_dir)}")
+    held = trace_holds(os.path.join(trace_dir, "discovery.json"), "discovery", launches, dev.type == "cuda")
+    records = read_vcf(vcf)
+    return {"region": [lo, hi], "sv": [kind, left, svlen], "records": len(records),
+            "sv_records": sum(abs(len(r.ref) - len(r.alt)) >= 50 for r in records),
+            "untraced_s": plain_s, "traced_s": traced_s, "launches": {k: v for k, v in launches.items() if v}, **held}
 
 
 def device_ops(fn):
@@ -4710,11 +4870,15 @@ def main():
     # leg 4: the product's pipeline through the port's CLI, then its SV
     # engine by parts and the FM-index, held to the JAX CPU run's file
     want4 = read_pipeline_leg_file()
-    (leg4, pipeline_launches, leg4_dir, leg4_fa), seconds = timed(lambda: pipeline_sv_phase(dev, genome, tmp.name, want=want4))
+    (leg4, pipeline_launches, leg4_dir, leg4_fa, leg4_sv), seconds = timed(lambda: pipeline_sv_phase(dev, genome, tmp.name, want=want4))
     missing = [k for k in PIPELINE_KERNELS if pipeline_launches[k] == 0]
     if missing:
         raise AssertionError(f"pipeline_sv: the cold run launched no {missing} kernel")
     say(phase="pipeline_sv", card=card, seconds=seconds, launches={k: pipeline_launches[k] for k in PIPELINE_KERNELS}, **leg4)
+    # the per-command trace: discovery through the CLI with --profile, held
+    # to the same call untraced and to the wrappers' launch counts
+    traced, seconds = timed(lambda: trace_phase(dev, tmp.name, os.path.join(leg4_dir, "sample.bgt"), leg4_fa, leg4_sv))
+    say(phase="trace", ok=True, card=card, seconds=seconds, **traced)
     sv_checked, seconds = timed(lambda: sv_engine_checks(dev, os.path.join(leg4_dir, "sample.bgt"), leg4_fa, want4))
     say(phase="sv_engine", ok=True, card=card, seconds=seconds, **sv_checked)
     bwt_checked, seconds = timed(lambda: bwt_checks(dev, genome, want4))

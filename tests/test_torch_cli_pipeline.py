@@ -236,7 +236,8 @@ def test_pipeline_sv_rehearsal_at_toy_size(toy, monkeypatch):
     dev = torch.device("cpu")
     genome = cs.leg_genome(TOY_GENOME)
     os.makedirs(os.path.join(tmp, "port"))
-    out, launches, out_dir, fa2 = cs.pipeline_sv_phase(dev, genome, os.path.join(tmp, "port"), library={**TOY, "error_rate": 0.0}, want=want)
+    out, launches, out_dir, fa2, sv_events = cs.pipeline_sv_phase(dev, genome, os.path.join(tmp, "port"), library={**TOY, "error_rate": 0.0}, want=want)
+    assert sv_events == truth["sv"]
     assert not any(launches.values())  # CPU tensors: the plain versions
     assert set(out["cold_stage_s"]) == set(out["warm_stage_s"]) == set(cs.PIPELINE_STAGES)
     assert out["sv_pass"]["breakend_lanes"] >= 1 and out["sv_pass"]["walk_steps"] >= 1000
