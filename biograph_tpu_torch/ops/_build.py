@@ -18,10 +18,12 @@ directory its user may write to (a checkout or an editable install).
 ``build_all`` starts one ``nvcc`` per source at once, so a cold start pays
 the slowest single build rather than their sum.
 
-``traced`` marks each kernel wrapper's calls in a ``runtime.log.maybe_profile``
-trace: a launch on the card, or the plain version on the CPU, is one range
-named ``bgt::<wrapper>``, so the trace names the host side of each launch
-(the device side carries the ``__global__`` function's name).
+``traced`` marks each kernel wrapper's calls while a profiler runs (a
+``runtime.log.maybe_profile`` trace or any other): a launch on the card, or
+the plain version on the CPU, is one span of ``runtime.log``'s recorder,
+named after the wrapper, and in a ``maybe_profile`` trace one range named
+``bgt::<wrapper>``, so the trace names the host side of each launch (the
+device side carries the ``__global__`` function's name).
 """
 
 from __future__ import annotations
@@ -175,20 +177,19 @@ def launch(kernel: str, symbol: str, argtypes, device, *args):
 
 
 def traced(label: str, lanes: int):
-    """Decorator of a kernel wrapper: while a trace is open, a call whose
-    argument ``lanes`` (by position) holds elements runs inside a profiler
-    range named ``bgt::<label>``; a call without elements launches nothing
-    and gets no range.  Outside a trace a call costs one attribute read."""
-    name = _log.RANGE_PREFIX + label
+    """Decorator of a kernel wrapper: while a profiler runs
+    (``runtime.log.tracing()``), a call whose argument ``lanes`` (by
+    position) holds elements is the span ``label`` of ``runtime.log``'s
+    recorder, a range ``bgt::<label>`` in a ``maybe_profile`` trace; a call
+    without elements launches nothing and gets no span.  Otherwise a call
+    costs that one check."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
-            if not _log.tracing or args[lanes].numel() == 0:
+            if not _log.tracing() or args[lanes].numel() == 0:
                 return fn(*args, **kwargs)
-            from torch.profiler import record_function
-
-            with record_function(name):
+            with _log.span(label):
                 return fn(*args, **kwargs)
 
         return call

@@ -51,9 +51,10 @@ against; no query reads it.  The kernels take ``__popc`` of the bits; the
 plain versions widen to int64, mask with ``& 0xFFFFFFFF`` and count by SWAR.
 
 Each wrapper takes its plain version only for CPU tensors; CUDA tensors
-launch the kernel or raise.  ``<wrapper>.launches`` counts launches.  In a
-``runtime.log.maybe_profile`` trace each call with lanes is a range named
-``bgt::<wrapper>`` (``_build.traced``).
+launch the kernel or raise.  ``<wrapper>.launches`` counts launches.  While
+a profiler runs (a ``runtime.log.maybe_profile`` trace or any other) each
+call with lanes is a span named after the wrapper, a range ``bgt::<wrapper>``
+in a ``maybe_profile`` trace (``_build.traced``).
 """
 
 from __future__ import annotations

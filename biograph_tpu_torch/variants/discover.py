@@ -59,6 +59,20 @@ block, chunk, interleaved and whole-device wavefront dispatch loops are
 replaced by one host loop with done-lane compaction.  Its environment
 switches are module constants here: ``NO_PRESCREEN`` (``BGT_NO_PRESCREEN``)
 and ``BUDGET_BYTES`` (``BGT_HBM_BUDGET_BYTES``).
+
+While a profiler runs, a call records spans (``runtime/log.span``):
+``discover.call`` around it; ``discover.prepare`` (the memory plan, the
+doubled reference built and uploaded; count ``bases``) and one span a
+stage of ``stage_s``, ``discover.<stage>``, from the stage clock; in the
+wavefront ``discover.wavefront.seed`` (a group's seed; ``lanes``),
+``discover.wavefront.steps`` (a block of up to CHECK_EVERY beam steps
+through the poll that ends it; ``steps``, ``lanes``) with its children
+``discover.wavefront.poll`` and ``discover.wavefront.compact`` (``lanes``),
+``discover.wavefront.harvest`` (``hits``) and ``discover.wavefront.retry``
+(``anchors``); in scoring ``discover.score.coverage`` and
+``discover.score.pair_gate`` (``assemblies``).  They add no device drain:
+the poll, the harvest's copy and the stage clock's drains are the call's
+own.
 """
 
 from __future__ import annotations
@@ -77,6 +91,7 @@ from biograph_tpu_torch.index.readmap import Readmap
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops.align_dp import align_blocks_batch
 from biograph_tpu_torch.ops.ltsearch import BLOCK as LT_BLOCK
+from biograph_tpu_torch.runtime import log as _log
 
 
 @dataclass
@@ -163,21 +178,30 @@ def _next_pow2(n):
 
 
 class _StageClock:
-    """Seconds a stage, added into ``stage_s`` under the stage's name; the
-    host clock is read after the device has drained."""
+    """Seconds a stage, added into ``stage_s`` under the stage's name and
+    recorded as the span ``discover.<stage>``; the host clock is read after
+    the device has drained.  The clock starts at the call's start; ``start``
+    ends the call's preparation (the span ``discover.prepare``, in no
+    stage) and starts the first stage."""
 
     def __init__(self, dev, stage_s: dict):
         self.dev, self.stage_s = dev, stage_s
-        self.t = self._now()
+        self.t = time.time_ns()
 
-    def _now(self) -> float:
+    def _now(self) -> int:
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
-        return time.time()
+        return time.time_ns()
+
+    def start(self, **counts) -> None:
+        now = self._now()
+        _log.add_span("discover.prepare", self.t, now, **counts)
+        self.t = now
 
     def mark(self, stage: str) -> None:
         now = self._now()
-        self.stage_s[stage] = self.stage_s.get(stage, 0.0) + (now - self.t)
+        self.stage_s[stage] = self.stage_s.get(stage, 0.0) + (now - self.t) / 1e9
+        _log.add_span("discover." + stage, self.t, now)
         self.t = now
 
 
@@ -766,17 +790,18 @@ def _maybe_compact(c, undone: int, stats=None) -> None:
         return
     if stats is not None:
         stats["wave_compactions"] = stats.get("wave_compactions", 0) + 1
-    # lane indices live-first (stable): the first `undone` are the live
-    # lanes, the rest done lanes usable as padding
-    front = torch.argsort(c["st"]["done"].to(torch.int32), stable=True)[:new_width]
-    if c.get("sel") is None:
-        c["full_st"] = c["st"]
-        sel = front
-    else:
-        _scatter_state(c["full_st"], c["st"], c["sel"])
-        sel = c["sel"][front]
-    c["sel"] = sel
-    c["st"] = {name: v[sel] for name, v in c["full_st"].items()}
+    with _log.span("discover.wavefront.compact", lanes=new_width):
+        # lane indices live-first (stable): the first `undone` are the live
+        # lanes, the rest done lanes usable as padding
+        front = torch.argsort(c["st"]["done"].to(torch.int32), stable=True)[:new_width]
+        if c.get("sel") is None:
+            c["full_st"] = c["st"]
+            sel = front
+        else:
+            _scatter_state(c["full_st"], c["st"], c["sel"])
+            sel = c["sel"][front]
+        c["sel"] = sel
+        c["st"] = {name: v[sel] for name, v in c["full_st"].items()}
 
 
 def _scatter_state(full, small, sel) -> None:
@@ -788,27 +813,33 @@ def _scatter_state(full, small, sel) -> None:
 def _drive(d, c, trunc_tables, stats=None) -> None:
     """Advance one group's beam to its end: step by step, with a poll of the
     undone count every CHECK_EVERY steps that ends the loop at 0 and shrinks
-    the state when few lanes are live."""
+    the state when few lanes are live.  Each block of steps is a span
+    ``discover.wavefront.steps`` whose ``steps`` count is the block's share
+    of ``stats["wave_steps"]``."""
     while c["step"] < c["MAXP"]:
         target = min(c["step"] + CHECK_EVERY, c["MAXP"])
+        steps = target - c["step"]
         if stats is not None:
-            stats["wave_steps"] = stats.get("wave_steps", 0) + target - c["step"]
-        while c["step"] < target:
-            c["st"] = _wavefront_body(
-                d, c["packed"], trunc_tables[0], trunc_tables[1],
-                c["n_packed"], c["st"], c["step"], c["MAXP"], c["k"],
-                c["min_w"], c["probe_ctx"], c["pos_bits"],
-            )
-            c["step"] += 1
-        if c["step"] >= c["MAXP"]:
-            break
-        # on a sharded engine every process must stop and compact at the
-        # same step, or their collectives no longer pair up: "done" is built
-        # from all-reduced ranges only, so it is the same on every process
-        undone = int((~c["st"]["done"]).sum())
-        if undone == 0:
-            break
-        _maybe_compact(c, undone, stats)
+            stats["wave_steps"] = stats.get("wave_steps", 0) + steps
+        with _log.span("discover.wavefront.steps", steps=steps, lanes=c["st"]["begin"].shape[0]):
+            while c["step"] < target:
+                c["st"] = _wavefront_body(
+                    d, c["packed"], trunc_tables[0], trunc_tables[1],
+                    c["n_packed"], c["st"], c["step"], c["MAXP"], c["k"],
+                    c["min_w"], c["probe_ctx"], c["pos_bits"],
+                )
+                c["step"] += 1
+            if c["step"] >= c["MAXP"]:
+                break
+            # on a sharded engine every process must stop and compact at the
+            # same step, or their collectives no longer pair up: "done" is
+            # built from all-reduced ranges only, so it is the same on every
+            # process
+            with _log.span("discover.wavefront.poll"):
+                undone = int((~c["st"]["done"]).sum())
+            if undone == 0:
+                break
+            _maybe_compact(c, undone, stats)
 
 
 def _asm_start(d, anchors, opt: DiscoverOptions, ref_limit: int, ref_dev,
@@ -897,40 +928,42 @@ def _asm_finish(c):
     the id sets feed the adaptive-depth retry in ``wavefront_assemble``
     (retrying an anchor that never saw a junction is pure waste: every
     clone walked the identical path)."""
-    out = c["st"]
-    if c.get("sel") is not None:
-        # fold the compacted live subset back into the full-width state
-        _scatter_state(c["full_st"], c["st"], c["sel"])
-        out = c["full_st"]
-    A, k = c["A"], c["k"]
-    rep, anchor_flat, lo_flat = c["rep"], c["anchor_flat"], c["lo_flat"]
-    # only rejoined lanes leave the device: the path matrix is the bulk of
-    # the state and most lanes never rejoin
-    lanes, rejoin, out_len, out_support, out_path = _compact_hits(out)
-    results = {}
-    for hit in range(len(lanes)):
-        lane = int(lanes[hit])
-        if lane >= A:
-            continue
-        j_flat = lo_flat + int(rejoin[hit])
-        a_flat = int(anchor_flat[lane])
-        alt_len = int(out_len[hit]) - k
-        if alt_len < 0 or j_flat <= a_flat:
-            continue
-        asm = Assembly(
-            chunk_start=lo_flat,
-            anchor=a_flat,
-            rejoin=j_flat,
-            seq=out_path[hit, :alt_len].copy(),
-            support=int(out_support[hit]),
-        )
-        key = rep[lane]
-        old = results.get(key)
-        if old is None or _asm_better(asm, old):
-            results[key] = asm
-    nj = out["n_junction"][:A].cpu().numpy()
-    branchy = {int(rep[lane]) for lane in np.nonzero(nj > 0)[0]}
-    return list(results.values()), set(results.keys()), branchy
+    with _log.span("discover.wavefront.harvest") as harvest:
+        out = c["st"]
+        if c.get("sel") is not None:
+            # fold the compacted live subset back into the full-width state
+            _scatter_state(c["full_st"], c["st"], c["sel"])
+            out = c["full_st"]
+        A, k = c["A"], c["k"]
+        rep, anchor_flat, lo_flat = c["rep"], c["anchor_flat"], c["lo_flat"]
+        # only rejoined lanes leave the device: the path matrix is the bulk of
+        # the state and most lanes never rejoin
+        lanes, rejoin, out_len, out_support, out_path = _compact_hits(out)
+        harvest.set(hits=len(lanes))
+        results = {}
+        for hit in range(len(lanes)):
+            lane = int(lanes[hit])
+            if lane >= A:
+                continue
+            j_flat = lo_flat + int(rejoin[hit])
+            a_flat = int(anchor_flat[lane])
+            alt_len = int(out_len[hit]) - k
+            if alt_len < 0 or j_flat <= a_flat:
+                continue
+            asm = Assembly(
+                chunk_start=lo_flat,
+                anchor=a_flat,
+                rejoin=j_flat,
+                seq=out_path[hit, :alt_len].copy(),
+                support=int(out_support[hit]),
+            )
+            key = rep[lane]
+            old = results.get(key)
+            if old is None or _asm_better(asm, old):
+                results[key] = asm
+        nj = out["n_junction"][:A].cpu().numpy()
+        branchy = {int(rep[lane]) for lane in np.nonzero(nj > 0)[0]}
+        return list(results.values()), set(results.keys()), branchy
 
 
 def _asm_better(a: Assembly, b: Assembly) -> bool:
@@ -1021,10 +1054,13 @@ def wavefront_assemble(
         """Each group's beam from seed to end; (anchor ids, ctx) pairs."""
         pairs = []
         for sel in group_sels:
-            c = _asm_start(
-                d, tuple(a[sel] for a in anchors), opt, ref_limit, ref_dev,
-                span_shared, ncl=ncl,
-            )
+            with _log.span("discover.wavefront.seed") as seed:
+                c = _asm_start(
+                    d, tuple(a[sel] for a in anchors), opt, ref_limit, ref_dev,
+                    span_shared, ncl=ncl,
+                )
+                if c is not None:
+                    seed.set(lanes=c["st"]["begin"].shape[0])
             if c is not None:
                 _drive(d, c, trunc_tables, stats)
                 pairs.append((sel, c))
@@ -1067,13 +1103,14 @@ def wavefront_assemble(
             np.asarray(failed[i : i + per], np.int64)
             for i in range(0, len(failed), per)
         ]
-        failed = []
-        for sel, c in run_groups(fgroups, ncl):
-            ok_keys = harvest(sel, c)
-            if stats is not None:
-                stats["branch_retry_rescued"] = stats.get(
-                    "branch_retry_rescued", 0
-                ) + len(ok_keys)
+        with _log.span("discover.wavefront.retry", anchors=len(failed)):
+            failed = []
+            for sel, c in run_groups(fgroups, ncl):
+                ok_keys = harvest(sel, c)
+                if stats is not None:
+                    stats["branch_retry_rescued"] = stats.get(
+                        "branch_retry_rescued", 0
+                    ) + len(ok_keys)
     return out[: opt.max_assemblies]
 
 
@@ -1130,7 +1167,16 @@ def discover_variants(
 
     Returns the records (dicts of chrom, pos, ref, alt, support,
     ref_support, aid), sorted by position.  Without a readmap ``support`` is
-    the narrowest range along the alt path and ``ref_support`` is 0."""
+    the narrowest range along the alt path and ``ref_support`` is 0.
+
+    While a profiler runs the call is the span ``discover.call``, the root
+    of its spans (the module's docstring lists them)."""
+    with _log.span("discover.call"):
+        return _discover(ss, reference, region, opt, readmap, stats, out_assemblies, engine)
+
+
+def _discover(ss, reference, region, opt, readmap, stats, out_assemblies, engine):
+    """``discover_variants``' body."""
     opt = opt or DiscoverOptions()
     dev = ss.device if engine is None else engine.device
     if readmap is not None and readmap.device != dev:
@@ -1146,13 +1192,14 @@ def discover_variants(
     stats.setdefault("anchors_found", 0)
     stats.setdefault("anchors_truncated", 0)
     stats.setdefault("assemblies_truncated", 0)
+    clock = _StageClock(dev, stats.setdefault("stage_s", {}))
     plan = _discovery_memory_plan(ss, G, stats, engine)
     ref2 = np.concatenate([ref, (3 - ref[::-1]).astype(np.uint8)])
     ref2_dev = engine.replicate(ref2) if engine is not None else torch.from_numpy(ref2).to(dev)
     segments = _segments(opt, lo, hi, G)
     if not segments:
         return []
-    clock = _StageClock(dev, stats.setdefault("stage_s", {}))
+    clock.start(bases=len(ref2))
     if engine is None and use_prescreen(opt):
         anchor_parts, hit_pos = _find_anchors(ss, ref2_dev, segments, opt, stats, clock, G)
     else:
@@ -1198,7 +1245,8 @@ def discover_variants(
         # sub-threshold assemblies can never yield an emittable record
         all_asms = [a for a in all_asms if a.support >= opt.min_alt_support]
         # long alt paths without any mate-pair anchoring are discarded
-        all_asms = pair_gate_assemblies(readmap, ref, all_asms, opt, stats)
+        with _log.span("discover.score.pair_gate", assemblies=len(all_asms)):
+            all_asms = pair_gate_assemblies(readmap, ref, all_asms, opt, stats)
     if opt.trace_offsets:
         for a in all_asms:
             if any(a.anchor <= t <= a.rejoin for t in opt.trace_offsets):
@@ -1336,9 +1384,10 @@ def score_assemblies(rm: Readmap, ref: np.ndarray, asms: List[Assembly], opt: Di
         return asms
     rows, q, ql = _score_rows(ref, asms, int(rm.max_read_len) + 2)
     kmax = opt.read_cov_max_reads_per_entry or 16
-    fwd, rev = rm.coverage(q, ql, kmax=kmax)
-    fwd = fwd.cpu().numpy()
-    rev = rev.cpu().numpy()
+    with _log.span("discover.score.coverage", assemblies=len(asms)):
+        fwd, rev = rm.coverage(q, ql, kmax=kmax)
+        fwd = fwd.cpu().numpy()
+        rev = rev.cpu().numpy()
     tot = fwd + rev
     if opt.penalize_directional_coverage:
         # discount heavily one-sided depth: one direction dominating is the

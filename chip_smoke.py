@@ -3259,6 +3259,7 @@ def pipeline_sv_phase(dev, genome, tmp, library=None, want=None):
 
 
 TRACE_KERNELS = ("push4", "push_front", "chain_window")  # what the traced discovery call must launch
+PROGRAM_SPANS = ("discover.",)  # the program's spans' ranges in a trace (runtime/log.span), apart from the wrappers'
 TRACE_FLANK = 10_000  # the traced region: the smallest planted SV and this many bases each side
 TRACE_SLACK_US = 100.0  # an event may overhang the command's range by this much (the device's clock mapped to the host's)
 ENTRY_SYMBOLS = {"chain_fixed": "bgt_chain_window"}  # C entry points not named bgt_<wrapper>
@@ -3286,9 +3287,9 @@ def kernel_function(name, ours):
 def trace_holds(path, command, launches, on_card):
     """Checks (b)-(e) of a command's trace against the wrappers' launches in
     the traced call: one range named ``command`` spans every other event;
-    each wrapper's ``bgt::`` ranges equal its launches (on the CPU, where
-    nothing launches, each of TRACE_KERNELS has a range); on the card the
-    device events of TRACE_KERNELS' functions equal their launches times
+    each wrapper's ``bgt::`` ranges (the program's spans apart) equal its
+    launches (on the CPU, where nothing launches, each of TRACE_KERNELS has
+    a range); on the card the device events of TRACE_KERNELS' functions equal their launches times
     the kernels a launch makes, and every kernel is launched from inside a
     PyTorch operator or, one of the port's, from inside a wrapper's range.
     Returns what the ``trace`` line prints of the file."""
@@ -3307,10 +3308,14 @@ def trace_holds(path, command, launches, on_card):
     worst = max(over, default=(0.0, None))
     if worst[0] > TRACE_SLACK_US:
         raise AssertionError(f"trace: {worst[1]} lies {worst[0]:.1f} us outside the {command} range")
-    ranges = Counter(e["name"][len(RANGE_PREFIX):] for e in own if e["name"].startswith(RANGE_PREFIX))
+    named = Counter(e["name"][len(RANGE_PREFIX):] for e in own if e["name"].startswith(RANGE_PREFIX))
+    # the program's spans (runtime/log.span) are named <module>.<part>
+    program = {k: n for k, n in named.items() if k.startswith(PROGRAM_SPANS)}
+    ranges = Counter({k: n for k, n in named.items() if k not in program})
     if not set(ranges) <= set(WRAPPERS):
         raise AssertionError(f"trace: ranges of no wrapper {sorted(set(ranges) - set(WRAPPERS))}")
-    out = {"bytes": os.path.getsize(path), "events": len(events), "ranges": dict(ranges), "overhang_us": worst[0], "overhang_event": worst[1]}
+    out = {"bytes": os.path.getsize(path), "events": len(events), "ranges": dict(ranges), "spans": program,
+           "overhang_us": worst[0], "overhang_event": worst[1]}
     if not on_card:
         missing = [k for k in TRACE_KERNELS if not ranges[k]]
         if missing:
@@ -3354,7 +3359,7 @@ def trace_holds(path, command, launches, on_card):
         return i > 0 and ends[i - 1] >= e["ts"] + e["dur"]
 
     ops = intervals(lambda e: e.get("cat") == "cpu_op")
-    wrapped = intervals(lambda e: e.get("cat") == "user_annotation" and e["name"].startswith(RANGE_PREFIX))
+    wrapped = intervals(lambda e: e.get("cat") == "user_annotation" and e["name"][len(RANGE_PREFIX):] in WRAPPERS)
     for k, fn in zip(kernels, fn_of):
         launch = host.get(k.get("args", {}).get("correlation"))
         if launch is None:
@@ -3384,7 +3389,7 @@ def trace_argv(dev, bgt, fa, sv_events, flank=TRACE_FLANK):
 def trace_phase(dev, tmp, bgt, fa, sv_events, flank=TRACE_FLANK):
     """The per-command trace: ``trace_argv``'s discovery call without and
     then with ``--profile``: (a) the VCFs byte-equal, (b)-(e)
-    ``trace_holds``."""
+    ``trace_holds``, and the call's one ``bgt::discover.call`` span."""
     from biograph_tpu_torch import cli
 
     argv, (lo, hi), (kind, left, svlen) = trace_argv(dev, bgt, fa, sv_events, flank)
@@ -3399,6 +3404,8 @@ def trace_phase(dev, tmp, bgt, fa, sv_events, flank=TRACE_FLANK):
     if os.listdir(trace_dir) != ["discovery.json"]:
         raise AssertionError(f"trace: {trace_dir} holds {os.listdir(trace_dir)}")
     held = trace_holds(os.path.join(trace_dir, "discovery.json"), "discovery", launches, dev.type == "cuda")
+    if held["spans"].get("discover.call") != 1:
+        raise AssertionError(f"trace: {held['spans'].get('discover.call', 0)} discover.call spans, not one")
     records = read_vcf(vcf)
     return {"region": [lo, hi], "sv": [kind, left, svlen], "records": len(records),
             "sv_records": sum(abs(len(r.ref) - len(r.alt)) >= 50 for r in records),

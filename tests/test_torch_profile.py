@@ -16,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -92,7 +93,7 @@ def test_nothing_is_traced_without_a_dir(world, tmp_path, monkeypatch, how):
     monkeypatch.setattr(torch.profiler, "record_function", forbidden)
     if how == "library":
         with maybe_profile("block", None):
-            assert not log.tracing and not torch.autograd.profiler._is_profiler_enabled
+            assert not log.tracing() and not torch.autograd.profiler._is_profiler_enabled
             torch.ones(4).cumsum(0)
     else:
         cli.main(["stats", bgt, "--device", "cpu"])
@@ -105,9 +106,9 @@ def test_maybe_profile_writes_a_chrome_trace(tmp_path):
     operations it ran inside it, in <dir>/<tag>.json."""
     d = tmp_path / "trace"
     with maybe_profile("block", str(d)):
-        assert log.tracing and torch.autograd.profiler._is_profiler_enabled
+        assert log.tracing() and torch.autograd.profiler._is_profiler_enabled
         torch.arange(10).cumsum(0)
-    assert not log.tracing and not torch.autograd.profiler._is_profiler_enabled
+    assert not log.tracing() and not torch.autograd.profiler._is_profiler_enabled
     assert os.listdir(d) == ["block.json"]
     events = spans(d / "block.json")
     (top,) = ranges(events, "block")
@@ -121,7 +122,7 @@ def test_nested_call_adds_a_range(tmp_path):
     with maybe_profile("outer", str(d)):
         with maybe_profile("inner", str(d2)):
             torch.ones(3).sum()
-        assert log.tracing
+        assert log.tracing()
     assert os.listdir(d) == ["outer.json"] and not d2.exists()
     events = spans(d / "outer.json")
     (outer,), (inner,) = ranges(events, "outer"), ranges(events, "inner")
@@ -136,7 +137,7 @@ def test_raising_block_stops_the_profiler(tmp_path):
     with pytest.raises(ValueError, match="boom"):
         with maybe_profile("bad", str(d)):
             raise ValueError("boom")
-    assert not log.tracing and not torch.autograd.profiler._is_profiler_enabled
+    assert not log.tracing() and not torch.autograd.profiler._is_profiler_enabled
     assert not (d / "bad.json").exists()
     with maybe_profile("next", str(d)):
         torch.ones(2).sum()
@@ -148,6 +149,151 @@ def test_process_id_names_the_file(tmp_path):
         torch.ones(2).sum()
     assert os.listdir(tmp_path) == ["discovery.p3.json"]
     assert len(ranges(spans(tmp_path / "discovery.p3.json"), "discovery")) == 1
+
+
+# ---------------------------------------------------------------------------
+# the span recorder
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def recording():
+    """A fresh recording, left empty."""
+    log.take_spans()
+    yield
+    log.take_spans()
+
+
+def test_recorder_is_off_without_a_profiler(recording, monkeypatch):
+    """No profiler: a span opens no range, records nothing and costs the
+    switch's check; a finished span is dropped too."""
+    monkeypatch.setattr(torch.profiler, "record_function", lambda *a, **k: pytest.fail("a range without a profiler"))
+    with log.span("a", n=1) as a:
+        a.set(m=2)
+        with log.span("b"):
+            torch.ones(2).sum()
+    log.add_span("c", 1, 2)
+    assert not log.tracing() and log.take_spans() == []
+
+
+@pytest.mark.parametrize("how", ["torch_profiler", "maybe_profile"])
+def test_recorder_records_under_a_profiler(recording, tmp_path, how):
+    """Under torch.profiler (CPU activity) or maybe_profile the spans are
+    recorded with their counts; maybe_profile's file holds each as a range
+    bgt::<name> with its counts, inside the block's range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx = profile(activities=[ProfilerActivity.CPU]) if how == "torch_profiler" else maybe_profile("block", str(tmp_path))
+    with ctx:
+        with log.span("a", n=1) as a:
+            torch.ones(4).cumsum(0)
+            a.set(m=2)
+    got = log.take_spans()
+    assert [(s.name, s.counts, s.parent) for s in got] == [("a", {"n": 1, "m": 2}, -1)]
+    assert 0 < got[0].start_ns <= got[0].end_ns
+    if how == "maybe_profile":
+        events = spans(tmp_path / "block.json")
+        (top,), (a_range,) = ranges(events, "block"), ranges(events, log.RANGE_PREFIX + "a")
+        assert within(a_range, top) and a_range["args"] == {"n": 1, "m": 2}
+        ops = [e for e in events if e["name"] == "aten::cumsum"]
+        assert len(ops) == 1 and within(ops[0], a_range)
+
+
+def test_spans_nest(recording):
+    """A span's parent is the innermost span open at its start; a finished
+    span added later adopts the spans of its parent recorded inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with log.span("root"):
+            t0 = time.time_ns()
+            with log.span("a"):
+                with log.span("a1"):
+                    pass
+            with log.span("b"):
+                pass
+            log.add_span("stage", t0, time.time_ns())
+        with log.span("next"):
+            pass
+    got = log.take_spans()
+    by = {s.name: i for i, s in enumerate(got)}
+    parent = {s.name: (got[s.parent].name if s.parent >= 0 else None) for s in got}
+    assert parent == {"root": None, "a": "stage", "a1": "a", "b": "stage", "stage": "root", "next": None}
+    assert [s.name for s in got] == ["root", "a", "a1", "b", "stage", "next"] and by["stage"] == 4
+    for s in got:
+        if s.parent >= 0:
+            p = got[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+
+
+def test_raising_block_closes_its_span(recording):
+    """A block that raises: the error propagates, its spans end, and the
+    recording can be taken (nothing stays open)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ValueError, match="boom"):
+            with log.span("outer"):
+                with log.span("inner"):
+                    raise ValueError("boom")
+        with log.span("after"):
+            pass
+    got = log.take_spans()
+    assert [(s.name, s.parent) for s in got] == [("outer", -1), ("inner", 0), ("after", -1)]
+    assert all(s.end_ns >= s.start_ns > 0 for s in got)
+
+
+def test_take_spans_refuses_while_a_span_is_open(recording):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with log.span("open"):
+            with pytest.raises(RuntimeError, match="still open"):
+                log.take_spans()
+
+
+def test_recording_leaves_nothing_for_the_collector(recording):
+    """Spans, their counts and finished spans leave no object that the
+    cyclic collector tracks: recording does not set it off in the middle of
+    a call (a retained object a span did, in discovery's windows on the
+    card)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        gc.disable()
+        try:
+            before = gc.get_count()[0]
+            for i in range(5000):
+                with log.span("discover.wavefront.steps", steps=48, lanes=4096) as s:
+                    s.set(hits=i)
+                    with log.span("push4"):
+                        pass
+                log.add_span("discover.anchors", 1, 2)
+            grown = gc.get_count()[0] - before
+        finally:
+            gc.enable()
+    assert grown < 100, grown
+    assert len(log.take_spans()) == 15000
+
+
+def test_a_span_lies_inside_a_range_around_it_on_the_profilers_clock(recording):
+    """Each span lies inside a record_function range opened around it, the
+    range's times as the profiler stamps them: one clock."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(5):
+            with record_function(f"around{i}"):
+                with log.span(f"s{i}"):
+                    torch.ones(64).add_(1)
+    got = {s.name: s for s in log.take_spans()}
+    outer = {e.name(): e for e in prof.profiler.kineto_results.events() if e.name().startswith("around")}
+    assert len(got) == len(outer) == 5
+    for i in range(5):
+        s, r = got[f"s{i}"], outer[f"around{i}"]
+        assert r.start_ns() <= s.start_ns <= s.end_ns <= r.end_ns(), (r.start_ns(), s.start_ns, s.end_ns, r.end_ns())
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +340,10 @@ def tiny_seqset():
     return build_seqset(codes, np.full(40, 24, np.int32), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["rank4", "rank", "rank4_tiled", "gather_sizes", "push4", "push_front", "chain_window", "chain_fixed", "rank_cum"])
+WRAPPER_NAMES = ["rank4", "rank", "rank4_tiled", "gather_sizes", "push4", "push_front", "chain_window", "chain_fixed", "rank_cum"]
+
+
+@pytest.mark.parametrize("name", WRAPPER_NAMES)
 def test_wrapper_call_is_one_range_in_a_trace(tiny_seqset, tmp_path, monkeypatch, name):
     """In a trace a wrapper call with lanes is one range bgt::<wrapper>, a
     call without lanes none; outside a trace no range object is made.  The
@@ -248,6 +397,72 @@ def test_discovery_profile(world, tmp_path, monkeypatch):
     for name in ("push4", "push_front", "chain_window"):
         found = ranges(events, log.RANGE_PREFIX + name)
         assert found and all(within(e, call) for e in found), name
+
+
+DISCOVERY_SPANS = ("discover.prepare", "discover.wavefront.seed", "discover.wavefront.steps", "discover.wavefront.poll",
+                   "discover.wavefront.harvest", "discover.score.coverage", "discover.score.pair_gate")
+
+
+def test_discovery_spans_of_one_call(world, recording):
+    """A traced discover_variants call: one discover.call root holding every
+    other span; a span a stage of stage_s as long as the stage; the blocks'
+    steps counts summing to wave_steps; the same records as an untraced
+    call, which leaves the recorder empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biograph_tpu_torch.api import BioGraph
+    from biograph_tpu_torch.cli import _load_reference
+    from biograph_tpu_torch.variants.discover import DiscoverOptions, discover_variants
+
+    _, _, fa, bgt, _ = world
+    bg, ref = BioGraph(bgt, device="cpu"), _load_reference(fa)
+    opt = DiscoverOptions(min_alt_support=5)
+    plain_stats, traced_stats = {}, {}
+    plain = discover_variants(bg.seqset, ref, opt=opt, readmap=bg.readmap, stats=plain_stats)
+    assert log.take_spans() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = discover_variants(bg.seqset, ref, opt=opt, readmap=bg.readmap, stats=traced_stats)
+    got = log.take_spans()
+    assert traced == plain and len(plain) > 0
+    roots = [s for s in got if s.parent < 0]
+    assert [s.name for s in roots] == ["discover.call"]
+    names = {s.name for s in got}
+    assert set(DISCOVERY_SPANS) <= names and all(n.startswith("discover.") or n in WRAPPER_NAMES for n in names)
+    assert {got[s.parent].name for s in got if s.name == "push4"} >= {"discover.anchors", "discover.wavefront.steps"}
+    for s in got:
+        if s.parent >= 0:
+            p = got[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns, (s, p)
+    stage = {s.name[len("discover."):]: (s.end_ns - s.start_ns) / 1e9 for s in got if s.parent == 0 and s.name[len("discover."):] in traced_stats["stage_s"]}
+    assert stage.keys() == traced_stats["stage_s"].keys()
+    for k, v in traced_stats["stage_s"].items():
+        assert abs(stage[k] - v) < 1e-3, k
+    assert sum(s.counts["steps"] for s in got if s.name == "discover.wavefront.steps") == traced_stats["wave_steps"] > 0
+    (prep,) = [s for s in got if s.name == "discover.prepare"]
+    assert prep.counts == {"bases": 2 * len(ref.flat)}
+    steps = {i for i, s in enumerate(got) if s.name == "discover.wavefront.steps"}
+    assert all(got[s.parent].name == "discover.wavefront.steps" for s in got if s.name == "discover.wavefront.poll")
+    assert all(got[i].counts["lanes"] > 0 for i in steps)
+
+
+def test_discovery_profile_holds_the_calls_spans(world, tmp_path):
+    """discovery --profile d: the call's spans are ranges bgt::discover.*
+    inside the command's range, one bgt::discover.call holding the rest."""
+    from biograph_tpu_torch import cli
+
+    _, _, fa, bgt, _ = world
+    d = tmp_path / "trace"
+    cli.main(["discovery", "--mode", "assemble", "--no-sv", "--biograph", bgt, "--ref", fa, "--min-depth", "5",
+              "--out", str(tmp_path / "d.vcf"), "--device", "cpu", "--profile", str(d)])
+    events = spans(d / "discovery.json")
+    command = max(ranges(events, "discovery"), key=lambda e: e["dur"])
+    own = [e for e in events if e.get("cat") == "user_annotation" and e["name"].startswith(log.RANGE_PREFIX + "discover.")]
+    (call,) = [e for e in own if e["name"] == log.RANGE_PREFIX + "discover.call"]
+    assert within(call, command)
+    assert {e["name"][len(log.RANGE_PREFIX):] for e in own} >= set(DISCOVERY_SPANS) - {"discover.score.coverage", "discover.score.pair_gate"}
+    assert all(within(e, call) for e in own)
+    steps = [e for e in own if e["name"] == log.RANGE_PREFIX + "discover.wavefront.steps"]
+    assert steps and all(e["args"]["steps"] > 0 and e["pid"] == command["pid"] and e["tid"] == command["tid"] for e in steps)
 
 
 def test_chip_smoke_trace_phase_at_toy_size_on_the_cpu(world, tmp_path, monkeypatch):
