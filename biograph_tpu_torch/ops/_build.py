@@ -43,7 +43,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kernels_build")
 KERNELS = (
     "rank4", "rank4_tiled", "gather_sizes", "push4", "push_front",
-    "chain_window", "rank_cum",
+    "chain_window", "rank_cum", "beam_steps",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -181,13 +181,15 @@ def traced(label: str, lanes: int):
     (``runtime.log.tracing()``), a call whose argument ``lanes`` (by
     position) holds elements is the span ``label`` of ``runtime.log``'s
     recorder, a range ``bgt::<label>`` in a ``maybe_profile`` trace; a call
-    without elements launches nothing and gets no span.  Otherwise a call
+    without elements launches nothing and gets no span.  A state dict as
+    ``lanes`` counts by its ``begin``.  Otherwise a call
     costs that one check."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
-            if not _log.tracing() or args[lanes].numel() == 0:
+            x = args[lanes]
+            if not _log.tracing() or (x["begin"] if isinstance(x, dict) else x).numel() == 0:
                 return fn(*args, **kwargs)
             with _log.span(label):
                 return fn(*args, **kwargs)

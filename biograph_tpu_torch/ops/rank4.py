@@ -16,6 +16,11 @@ They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
   * ``chain_window`` <- ``chain_window_pallas`` (``_chain_window_kernel``),
     with ``chain_fixed`` <- ``chain_fixed_pallas`` over contiguous positions
 
+and ``beam_steps`` replaces none: it is discovery's beam step
+(``variants/discover._wavefront_body``), push4's ranks and the step's
+selection, truncation and rejoin search, for a block of steps in one launch,
+where the JAX package left the step's array code to XLA's fusion.
+
 The TPU kernels turn the gathers into one-hot matrix products over
 byte-limb tables, because random gathers are what that machine lacks; that
 brought an entry cap and a 24-bit count cap.  A GPU gathers directly, so
@@ -484,6 +489,7 @@ _KERNEL_CONSTANTS = {
     "push4": (("bgt_push4_block_words", BLOCK_WORDS),),
     "push_front": (("bgt_push_front_block_words", BLOCK_WORDS),),
     "chain_window": (("bgt_chain_window_block_words", BLOCK_WORDS),),
+    "beam_steps": (("bgt_beam_steps_block_words", BLOCK_WORDS),),
 }
 
 
@@ -673,6 +679,108 @@ def push_front(blocks, entry_sizes, fixed, begin, end, size, b):
 
 
 push_front.launches = 0
+
+
+# the beam state's tensors (variants/discover._wavefront_seed) and their types;
+# policy and min_local are read, the rest updated in place, path [A, MAXP]
+BEAM_STATE = {
+    "begin": torch.int64, "end": torch.int64, "size": torch.int32,
+    "path": torch.uint8, "path_len": torch.int32, "support": torch.int64,
+    "n_junction": torch.int32, "roll": torch.int64, "done": torch.bool,
+    "policy": torch.int32, "min_local": torch.int64, "rejoin": torch.int64,
+    "out_len": torch.int32, "out_support": torch.int64,
+}
+
+
+def beam_steps_plain(blocks, entry_sizes, fixed, prev_lt, next_lt, K, key2,
+                     n_packed, st, step0: int, steps: int, k: int, min_w: int,
+                     probe_ctx: int, pos_bits: int):
+    """Plain version of ``beam_steps``: discovery's ``_wavefront_body``
+    stepped ``steps`` times on a query engine over blocks, entry_sizes and
+    fixed, its results copied into st's own tensors."""
+    from biograph_tpu_torch.index.seqset import _SeqsetDevice
+    from biograph_tpu_torch.variants.discover import _wavefront_body
+
+    d = _SeqsetDevice(fixed=fixed, rank_blocks=blocks, entry_sizes=entry_sizes,
+                      shared=None, pop_sel=None, n_entries=entry_sizes.shape[0])
+    cur = st
+    for step in range(step0, step0 + steps):
+        cur = _wavefront_body(d, (K, key2), prev_lt, next_lt, n_packed, cur, step,
+                              st["path"].shape[1], k, min_w, probe_ctx, pos_bits)
+    for name, v in cur.items():
+        if v is not st[name]:
+            st[name].copy_(v)
+    return st
+
+
+def _check_beam(blocks, entry_sizes, fixed, prev_lt, next_lt, K, key2, n_packed,
+                st, step0, steps, k, pos_bits):
+    _check_blocks("beam_steps", blocks)
+    n = entry_sizes.shape[0]
+    if (
+        entry_sizes.dtype != torch.int32 or entry_sizes.dim() != 1 or n == 0
+        or fixed.dtype != torch.int64 or fixed.shape != (5,)
+        or any(t.dtype != torch.int64 or t.shape != (n,) for t in (prev_lt, next_lt))
+        or any(t.dtype != torch.int64 or t.dim() != 1 for t in (K, key2))
+        or K.shape != key2.shape or K.shape[0] == 0
+        or n_packed.dtype != torch.int64 or n_packed.dim() != 0
+    ):
+        raise TypeError(
+            "beam_steps: want entry_sizes int32 [n>0], fixed int64 [5], "
+            "prev_lt and next_lt int64 [n], K and key2 int64 [npk>0], "
+            "n_packed a 0-d int64 tensor"
+        )
+    if set(st) != set(BEAM_STATE) or any(st[name].dtype != t for name, t in BEAM_STATE.items()):
+        raise TypeError(f"beam_steps: the state must hold {BEAM_STATE}")
+    A = st["begin"].shape[0]
+    path = st["path"]
+    if path.dim() != 2 or path.shape[0] != A or any(
+        v.shape != (A,) for name, v in st.items() if name != "path"
+    ):
+        raise TypeError("beam_steps: the state's tensors must be [A], path [A, MAXP]")
+    if not (0 <= step0 and steps >= 0 and step0 + steps <= path.shape[1]):
+        raise ValueError("beam_steps: the block's steps must lie inside the path")
+    if not (1 <= k <= 31 and 0 <= pos_bits <= 62):
+        raise ValueError("beam_steps: want 1 <= k <= 31 and 0 <= pos_bits <= 62")
+
+
+@_build.traced("beam_steps", 8)
+def beam_steps(blocks, entry_sizes, fixed, prev_lt, next_lt, K, key2, n_packed,
+               st, step0: int, steps: int, k: int, min_w: int, probe_ctx: int,
+               pos_bits: int):
+    """Discovery's beam step for a block of steps in one launch: every lane
+    of the beam state ``st`` (the dict of ``BEAM_STATE``'s tensors) advanced
+    from step ``step0`` by ``steps`` steps of ``_wavefront_body``, in place.
+    Returns st.
+
+    blocks int32 [nblk, 4, 8], the rank-block table; entry_sizes int32 [n];
+    fixed int64 [5]; prev_lt, next_lt int64 [n], the trunc tables at
+    probe_ctx; K, key2 int64 [npk], the span table; n_packed its real rows, a
+    0-d int64 tensor.  k (the rejoin k-mer), min_w, probe_ctx and pos_bits as
+    the body takes them."""
+    tables = (blocks, entry_sizes, fixed, prev_lt, next_lt, K, key2, n_packed)
+    _check_beam(*tables, st, step0, steps, k, pos_bits)
+    args = (*tables, st, step0, steps, k, min_w, probe_ctx, pos_bits)
+    if {t.device.type for t in (*tables, *st.values())} == {"cpu"}:
+        return beam_steps_plain(*args)
+    ref = st["begin"]
+    _check_cuda("beam_steps", ref, *tables, *st.values())
+    _build.check_constants("beam_steps", _KERNEL_CONSTANTS["beam_steps"])
+    A = ref.shape[0]
+    if A == 0 or steps == 0:
+        return st
+    _build.launch(
+        "beam_steps", "bgt_beam_steps", [_VP] * 22 + [_LL] * 11, ref.device,
+        *(_build.ptr(t) for t in tables),
+        *(_build.ptr(st[name]) for name in BEAM_STATE),
+        blocks.shape[0], entry_sizes.shape[0], K.shape[0], A, step0, steps,
+        st["path"].shape[1], k, min_w, probe_ctx, pos_bits,
+    )
+    beam_steps.launches += 1
+    return st
+
+
+beam_steps.launches = 0
 
 
 @_build.traced("chain_window", 4)

@@ -40,14 +40,14 @@ Stages:
                      ``write_assembly_csv``
 
 On the card the seqset work goes through the kernels of ``ops/rank4.py``
-(``rank`` in the seed's push_front, ``push4`` in the anchor scan and every
-beam step, ``chain_window`` in the filter and the bisection, and in
-coverage where its routes need it); on CPU tensors the same code runs on
-their plain versions.  The front end is the JAX package's accelerator route
-(``find_window_auto`` + ``probe_exact`` on the chain kernel over every
-prescreened lane); its CPU route (the rolling-hash filter and the push4
-pre-gate) gives the same anchors.  Scoring takes the JAX package's
-accelerator form, one padded coverage batch, on every device.
+(``push_front`` in the seed, ``push4`` in the anchor scan, ``beam_steps``
+for a block of beam steps at a time, ``chain_window`` in the filter and the
+bisection, and in coverage where its routes need it); on CPU tensors the
+same code runs on their plain versions.  The front end is the JAX package's
+accelerator route (``find_window_auto`` + ``probe_exact`` on the chain
+kernel over every prescreened lane); its CPU route (the rolling-hash filter
+and the push4 pre-gate) gives the same anchors.  Scoring takes the JAX
+package's accelerator form, one padded coverage batch, on every device.
 
 With ``engine=`` (``parallel/sharded_discovery.ShardedDiscoveryEngine``) the
 seqset is sharded by entry range over the processes of a run: the dense
@@ -56,7 +56,8 @@ shard-local device in place of ``Seqset.d`` in every seqset query, and the
 readmap's scoring and pair gate local.  The walk engines of the JAX
 package's front end are not ported.  The JAX package's
 block, chunk, interleaved and whole-device wavefront dispatch loops are
-replaced by one host loop with done-lane compaction.  Its environment
+replaced by one host loop with done-lane compaction, one ``beam_steps``
+launch a block of steps.  Its environment
 switches are module constants here: ``NO_PRESCREEN`` (``BGT_NO_PRESCREEN``)
 and ``BUDGET_BYTES`` (``BGT_HBM_BUDGET_BYTES``).
 
@@ -66,7 +67,8 @@ doubled reference built and uploaded; count ``bases``) and one span a
 stage of ``stage_s``, ``discover.<stage>``, from the stage clock; in the
 wavefront ``discover.wavefront.seed`` (a group's seed; ``lanes``),
 ``discover.wavefront.steps`` (a block of up to CHECK_EVERY beam steps
-through the poll that ends it; ``steps``, ``lanes``) with its children
+through the poll that ends it; ``steps``, ``lanes``, and ``fused`` where one
+``beam_steps`` call ran the block) with its children
 ``discover.wavefront.poll`` and ``discover.wavefront.compact`` (``lanes``),
 ``discover.wavefront.harvest`` (``hits``) and ``discover.wavefront.retry``
 (``anchors``); in scoring ``discover.score.coverage`` and
@@ -89,6 +91,7 @@ from biograph_tpu_torch.core import dna
 from biograph_tpu_torch.index import probes
 from biograph_tpu_torch.index.readmap import Readmap
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
+from biograph_tpu_torch.ops import rank4 as rank4_ops
 from biograph_tpu_torch.ops.align_dp import align_blocks_batch
 from biograph_tpu_torch.ops.ltsearch import BLOCK as LT_BLOCK
 from biograph_tpu_torch.runtime import log as _log
@@ -811,17 +814,35 @@ def _scatter_state(full, small, sel) -> None:
 
 
 def _drive(d, c, trunc_tables, stats=None) -> None:
-    """Advance one group's beam to its end: step by step, with a poll of the
-    undone count every CHECK_EVERY steps that ends the loop at 0 and shrinks
-    the state when few lanes are live.  Each block of steps is a span
-    ``discover.wavefront.steps`` whose ``steps`` count is the block's share
-    of ``stats["wave_steps"]``."""
+    """Advance one group's beam to its end: a block of up to CHECK_EVERY
+    steps at a time, with a poll of the undone count after each block that
+    ends the loop at 0 and shrinks the state when few lanes are live.  Each
+    block is a span ``discover.wavefront.steps`` whose ``steps`` count is the
+    block's share of ``stats["wave_steps"]``.
+
+    An engine with the rank-block table and trunc tables beside it (the
+    single device) runs a block as one ``beam_steps`` call, the kernel on the
+    card, and counts its steps in ``stats["wave_fused_steps"]`` and the
+    span's ``fused``; the sharded engine, whose push4 and truncation hold
+    collectives, and the route without trunc tables take ``_wavefront_body``
+    step by step."""
+    fused = getattr(d, "rank_blocks", None) is not None and trunc_tables[0] is not None
     while c["step"] < c["MAXP"]:
         target = min(c["step"] + CHECK_EVERY, c["MAXP"])
         steps = target - c["step"]
         if stats is not None:
             stats["wave_steps"] = stats.get("wave_steps", 0) + steps
-        with _log.span("discover.wavefront.steps", steps=steps, lanes=c["st"]["begin"].shape[0]):
+        with _log.span("discover.wavefront.steps", steps=steps, lanes=c["st"]["begin"].shape[0]) as block:
+            if fused:
+                rank4_ops.beam_steps(
+                    d.rank_blocks, d.entry_sizes, d.fixed, *trunc_tables,
+                    *c["packed"], c["n_packed"], c["st"], c["step"], steps,
+                    c["k"], c["min_w"], c["probe_ctx"], c["pos_bits"],
+                )
+                c["step"] = target
+                block.set(fused=steps)
+                if stats is not None:
+                    stats["wave_fused_steps"] = stats.get("wave_fused_steps", 0) + steps
             while c["step"] < target:
                 c["st"] = _wavefront_body(
                     d, c["packed"], trunc_tables[0], trunc_tables[1],
@@ -904,7 +925,10 @@ def _asm_start(d, anchors, opt: DiscoverOptions, ref_limit: int, ref_dev,
     )
     return dict(
         st=_wavefront_seed(d, seed, MAXP), step=1, packed=packed,
-        n_packed=n_packed, MAXP=MAXP, k=k, min_w=opt.min_extend_width,
+        # the table's real rows as a device scalar, as the beam_steps kernel
+        # reads them
+        n_packed=torch.as_tensor(n_packed, dtype=torch.int64, device=dev),
+        MAXP=MAXP, k=k, min_w=opt.min_extend_width,
         probe_ctx=opt.probe_ctx, pos_bits=pos_bits, rep=rep,
         anchor_flat=anchor_flat, lo_flat=lo_flat, A=A, n_sel=A0,
     )

@@ -20,8 +20,10 @@ same store, from the read store to records (prescreen, chain-kernel front end,
 anchor scan, beam wavefront, extract + affine DP), cold and warm, and is held
 to the genome, to the planted SNPs and, over a region, to the same call on a
 CPU copy of the store, where every kernel's plain version runs; the call is
-then replayed stage by stage with push4, push_front and chain_window each held
-against its plain version on the very lanes discovery hands it; a small
+then replayed stage by stage with push4, push_front, chain_window and
+beam_steps each held against its plain version on the very lanes discovery
+hands it, and beam_steps is held at the wavefront's 16 384 lanes and over a
+whole compacted drive of an insertion library (``beam_steps_checks``); a small
 genome with an insertion, a deletion and a block substitution is discovered on
 the card and on the CPU with identical records, which takes the affine DP to
 the card.  Then discovery runs with the readmap the path built and loaded
@@ -199,6 +201,7 @@ import dataclasses
 import importlib
 import inspect
 import json
+import math
 import os
 import re
 import struct
@@ -261,12 +264,13 @@ WRAPPERS = {
     "chain_window": rank4_ops.chain_window,
     "chain_fixed": rank4_ops.chain_fixed,
     "rank_cum": rank_cum_ops.rank_cum,
+    "beam_steps": rank4_ops.beam_steps,
 }
 # the kernels of the create-and-query path: chain_fixed is coverage's (its
 # uniform route without the hash index), which scored_checks drives; rank,
 # since push_front took find's steps, is the widen family's (widen_checks
 # counts it) and the sharded engine's (leg 7 must launch it)
-MAIN_PATH_KERNELS = tuple(name for name in WRAPPERS if name not in ("chain_fixed", "rank"))
+MAIN_PATH_KERNELS = tuple(name for name in WRAPPERS if name not in ("chain_fixed", "rank", "beam_steps"))
 SOURCES = {"rank": "rank4", "chain_fixed": "chain_window"}  # kernels whose source is not named after them
 REPLACES = {
     "rank4": "biograph_tpu/ops/rank4.py:134",
@@ -278,6 +282,7 @@ REPLACES = {
     "chain_window": "biograph_tpu/ops/rank4.py:359",
     "chain_fixed": "biograph_tpu/ops/rank4.py:407",
     "rank_cum": "biograph_tpu/ops/pallas_rank.py:89",
+    "beam_steps": "none: the beam step, biograph_tpu/variants/discover.py:344-580, fused by XLA",
 }
 
 
@@ -1480,6 +1485,18 @@ def run_discover(ss, reference, stage=None, opt=None, **kw):
     return records, stats, seconds, {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def require_route(name, stats, launches, fused=True):
+    """The beam's route in a call: with the trunc tables every block of beam
+    steps is one beam_steps launch (wave_fused_steps == wave_steps);
+    without them none is."""
+    steps, fused_steps = stats.get("wave_steps", 0), stats.get("wave_fused_steps", 0)
+    launched = launches["beam_steps"] > 0 or not any(launches.values())  # on CPU tensors nothing launches
+    if fused and not (steps > 0 and fused_steps == steps and launched):
+        raise AssertionError(f"{name}: {fused_steps} of {steps} beam steps fused, {launches['beam_steps']} beam_steps launches")
+    if not fused and (fused_steps or launches["beam_steps"]):
+        raise AssertionError(f"{name}: {fused_steps} beam steps fused without the trunc tables")
+
+
 def discover_phase(ss, reference):
     """discover_variants over the whole genome on the card, cold (the
     prescreen bitmap and the trunc tables are built and cached on the
@@ -1490,6 +1507,7 @@ def discover_phase(ss, reference):
         missing = [name for name in DISCOVER_KERNELS if launches[name] == 0]
         if missing:
             raise AssertionError(f"discovery launched no {missing} kernel")
+        require_route("discovery", stats, launches)
         out[run] = {
             "seconds": seconds,
             "stage_s": stats["stage_s"],
@@ -1502,6 +1520,7 @@ def discover_phase(ss, reference):
         anchors_truncated=stats["anchors_truncated"],
         assemblies_truncated=stats["assemblies_truncated"],
         beam_steps=stats.get("wave_steps", 0),
+        fused_beam_steps=stats.get("wave_fused_steps", 0),
         compactions=stats.get("wave_compactions", 0),
         branch_retry_rescued=stats.get("branch_retry_rescued", 0),
         memory_plan=stats["memory_plan"],
@@ -1587,6 +1606,37 @@ class HeldEngine:
         return got
 
 
+def beam_state(st):
+    return tuple(st[name] for name in rank4_ops.BEAM_STATE)
+
+
+@contextlib.contextmanager
+def held_beam_steps(held):
+    """While it is open, every beam_steps call of ``_drive`` (through the
+    discovery module's ``rank4_ops``, here a copy of the module's names with
+    beam_steps holding) holds the kernel against its plain version on a copy
+    of the state it was handed, all 14 tensors equal after the block;
+    ``held["beam_steps"]`` counts the calls by lane count."""
+    real = rank4_ops.beam_steps
+    calls = held.setdefault("beam_steps", {})
+
+    def holding(*args):
+        st = args[8]
+        copy = {name: v.clone() for name, v in st.items()}
+        out = real(*args)
+        rank4_ops.beam_steps_plain(*args[:8], copy, *args[9:])
+        lanes = st["begin"].shape[0]
+        require_equal(f"beam_steps in discovery, {lanes} lanes, {args[10]} steps", beam_state(st), beam_state(copy))
+        calls[lanes] = calls.get(lanes, 0) + 1
+        return out
+
+    disc.rank4_ops = SimpleNamespace(**{**vars(rank4_ops), "beam_steps": holding})
+    try:
+        yield
+    finally:
+        disc.rank4_ops = rank4_ops
+
+
 def discover_kernel_holds(ss, reference, anchors_found=None):
     """Every kernel of the discovery path against its plain version on the
     inputs discovery gives it.  The whole-genome call is replayed stage by
@@ -1594,8 +1644,8 @@ def discover_kernel_holds(ss, reference, anchors_found=None):
     round hold chain_window at depth probe_ctx over all candidate lanes; the
     anchor scan holds push4 on those lanes; the first beam group of each
     orientation, seeded and driven to its end, holds push_front on the seed
-    and push4 at every beam step, at the full and at every compacted
-    width."""
+    and beam_steps at every block of beam steps, at the full and at every
+    compacted width."""
     opt = disc.DiscoverOptions(**DISCOVER_OPT)
     d, dev = ss.d, ss.device
     held = HeldEngine(d)
@@ -1620,18 +1670,178 @@ def discover_kernel_holds(ss, reference, anchors_found=None):
         raise AssertionError(f"the replayed front end found {n_raw} anchors, discover_variants {anchors_found}")
     live = stacked.cpu().numpy()
     trunc = disc._trunc_tables(ss, opt.probe_ctx)
-    for rev_half in (False, True):
-        half = (live[0] >= G) == rev_half
-        c = disc._asm_start(held, tuple(col[half][: disc.WAVE_LANES] for col in live), opt, 2 * G if rev_half else G, ref2_dev)
-        if c is not None:
-            disc._drive(held, c, trunc, stats)
+    with held_beam_steps(held.held):
+        for rev_half in (False, True):
+            half = (live[0] >= G) == rev_half
+            c = disc._asm_start(held, tuple(col[half][: disc.WAVE_LANES] for col in live), opt, 2 * G if rev_half else G, ref2_dev)
+            if c is not None:
+                disc._drive(held, c, trunc, stats)
     for kernel, calls in held.held.items():
         if not calls:
             raise AssertionError(f"the replayed discovery path never reached {kernel}")
     return {
         "lanes": int(pos.shape[0]), "anchors": n_raw, "chain_window_depth": opt.probe_ctx, "chain_window_mean_m": chains,
         "push4_calls_by_lanes": held.held["push4"], "push_front_calls_by_lanes": held.held["push_front"],
-        "beam_steps": stats.get("wave_steps", 0), "compactions": stats.get("wave_compactions", 0),
+        "beam_steps_calls_by_lanes": held.held["beam_steps"],
+        "beam_steps": stats.get("wave_steps", 0), "fused_beam_steps": stats.get("wave_fused_steps", 0),
+        "compactions": stats.get("wave_compactions", 0),
+    }
+
+
+class SteppedEngine:
+    """A seqset's query engine without the rank-block table's attribute:
+    ``_drive`` then steps ``_wavefront_body`` as it does for the sharded
+    engine."""
+
+    def __init__(self, d):
+        self._d = d
+
+    def __getattr__(self, name):
+        if name == "rank_blocks":
+            raise AttributeError(name)
+        return getattr(self._d, name)
+
+
+def beam_group(ss, reference, fill):
+    """One beam group of the forward half's anchors, repeated to ``fill``
+    anchors: (start, a function seeding the group anew; the anchors; the
+    trunc tables)."""
+    opt = disc.DiscoverOptions(**DISCOVER_OPT)
+    dev = ss.device
+    G = len(reference.flat)
+    ref2_dev = torch.from_numpy(np.concatenate([reference.flat, (3 - reference.flat[::-1]).astype(np.uint8)])).to(dev)
+    stats = {"anchors_found": 0, "anchors_truncated": 0}
+    parts, _ = disc._find_anchors(ss, ref2_dev, disc._segments(opt, 0, G, G), opt, stats, disc._StageClock(dev, {}), G)
+    fwd = parts[False]
+    anchors = tuple(col[np.resize(np.arange(len(fwd[0])), fill)] for col in fwd)
+
+    def start(a=anchors):
+        return disc._asm_start(ss.d, a, opt, G, ref2_dev)
+
+    return start, fwd, disc._trunc_tables(ss, opt.probe_ctx)
+
+
+def insertion_library(dev, genome_len=20_000, n_ins=2, ins_len=120, n_snps=8, read_len=100, depth=30, seed=SEED + 17):
+    """A store whose beam outlives its first block in a few lanes: SNPs,
+    whose lanes rejoin after rejoin_k steps, and insertions of ``ins_len``
+    bases, whose lanes walk on past the block; errorless reads at ``depth``.
+    Returns (store, reference)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    sites = np.sort(rng.choice(np.arange(1000, genome_len - 1000, 500), n_ins + n_snps, replace=False))
+    parts, prev = [], 0
+    for i, p in enumerate(sites):
+        parts.append(ref[prev : p + 1])
+        if i % ((n_ins + n_snps) // n_ins) == 0:
+            parts.append(rng.integers(0, 4, ins_len, dtype=np.uint8))
+            prev = p + 1
+        else:
+            parts[-1] = parts[-1].copy()
+            parts[-1][-1] = (parts[-1][-1] + 1) % 4
+            prev = p + 1
+    parts.append(ref[prev:])
+    donor = np.concatenate(parts)
+    starts = rng.integers(0, len(donor) - read_len, len(donor) * depth // read_len)
+    codes = donor[starts[:, None] + np.arange(read_len)]
+    codes[: len(starts) // 2] = (3 - codes[: len(starts) // 2])[:, ::-1]
+    ss = build_seqset(codes, np.full(len(starts), read_len, np.int32), device=dev)
+    return ss, reference_from_numpy(ref, np.zeros(genome_len, bool), [("chr1", 0, genome_len)])
+
+
+def beam_steps_checks(ss, reference, drive_world, fill=None):
+    """beam_steps at the wavefront's shape: one group of ``fill`` anchors
+    (WAVE_LANES unless given; the forward half's, repeated to fill it) times
+    the clones, 16 384 lanes.  (a) On (ss, reference), one block of
+    CHECK_EVERY steps from the seed, the kernel against its plain version
+    (``_wavefront_body`` stepped), all 14 state tensors equal; on the card
+    the kernel's device time at this width and at 128 lanes, the call as a
+    loop sees it, the plain version's time, and the bound of the bytes the
+    live lanes ask for.  (b) On ``drive_world`` (an ``insertion_library``),
+    the group driven to its end by ``_drive``, fused and step by step
+    (``SteppedEngine``), through a compaction: the states and the harvested
+    assemblies equal."""
+    fill = fill or disc.WAVE_LANES
+    d = ss.d
+    start, fwd, trunc = beam_group(ss, reference, fill)
+    c = start()
+    seed = {name: v.clone() for name, v in c["st"].items()}
+    lanes = int(seed["begin"].shape[0])
+    steps = disc.CHECK_EVERY
+    tables = (d.rank_blocks, d.entry_sizes, d.fixed, *trunc, *c["packed"], c["n_packed"])
+    rest = (c["k"], c["min_w"], c["probe_ctx"], c["pos_bits"])
+    work = {name: v.clone() for name, v in seed.items()}
+
+    def kernel(st=work, seed=seed):
+        for name, v in seed.items():
+            st[name].copy_(v)
+        return rank4_ops.beam_steps(*tables, st, c["step"], steps, *rest)
+
+    kernel()
+    plain = {name: v.clone() for name, v in seed.items()}
+    live_lane_steps = 0
+    for step in range(c["step"], c["step"] + steps):
+        live_lane_steps += int((~plain["done"]).sum())
+        plain = disc._wavefront_body(d, c["packed"], *trunc, c["n_packed"], plain, step, c["MAXP"], *rest)
+    require_equal(f"beam_steps, {lanes} lanes, one block of {steps} steps", beam_state(work), beam_state(plain))
+    out = {"lanes": lanes, "steps": steps, "live_lane_steps": live_lane_steps}
+    if d.device.type == "cuda":
+        out.update(beam_steps_times(c, tables, seed, steps, rest, live_lane_steps, fwd, start, kernel))
+    # (b) a whole drive, fused and step by step
+    ds = drive_world[0].d
+    start, _, trunc = beam_group(*drive_world, fill)
+    fused_stats, stepped_stats = {}, {}
+    fused, stepped = start(), start()
+    disc._drive(ds, fused, trunc, fused_stats)
+    disc._drive(SteppedEngine(ds), stepped, trunc, stepped_stats)
+    if fused_stats.get("wave_fused_steps") != fused_stats["wave_steps"] or "wave_fused_steps" in stepped_stats:
+        raise AssertionError(f"beam_steps_checks: routes {fused_stats} {stepped_stats}")
+    if not fused_stats.get("wave_compactions") or fused_stats != stepped_stats | {"wave_fused_steps": fused_stats["wave_steps"]}:
+        raise AssertionError(f"beam_steps_checks: no compaction, or the drives differ: {fused_stats} {stepped_stats}")
+    require_equal("a whole _drive, compacted state", beam_state(fused["st"]), beam_state(stepped["st"]))
+    got, want = disc._asm_finish(fused), disc._asm_finish(stepped)
+    require_equal("a whole _drive, full state", beam_state(fused["full_st"]), beam_state(stepped["full_st"]))
+    key = lambda a: (a.anchor, a.rejoin, a.seq.tolist(), a.support)
+    if [key(a) for a in got[0]] != [key(a) for a in want[0]] or got[1:] != want[1:]:
+        raise AssertionError("a whole _drive: the harvests differ")
+    lens = sorted({len(a.seq) for a in got[0]})
+    return {**out, "drive": {**fused_stats, "lanes": int(fused["full_st"]["begin"].shape[0]), "assemblies": len(got[0]),
+                             "alt_lengths": lens}}
+
+
+def beam_steps_times(c, tables, seed, steps, rest, live_lane_steps, fwd, start, kernel):
+    """beam_steps_checks' times on the card: the kernel's device ms a launch
+    at the group's width and at 128 lanes (the latency of the chain alone),
+    the call as a loop sees it (the state's reset included), the plain
+    version's ms, and the bound of the bytes the live lanes ask for."""
+
+    def plain_block(seed=seed):
+        st = {name: v.clone() for name, v in seed.items()}
+        return rank4_ops.beam_steps_plain(*tables, st, c["step"], steps, *rest)
+
+    narrow = start(tuple(col[:32] for col in fwd))
+    small = {name: v.clone() for name, v in narrow["st"].items()}
+
+    def kernel_narrow(st=small, seed=narrow["st"]):
+        for name, v in seed.items():
+            st[name].copy_(v)
+        return rank4_ops.beam_steps(*tables[:5], *narrow["packed"], narrow["n_packed"], st, narrow["step"], steps, *rest)
+
+    npk = int(c["packed"][0].shape[0])
+    rounds = math.ceil(math.log(npk) / math.log(4 * 2 + 1))
+    # a live lane-step: both ends' 128-byte rank lines, a kick's sector, two
+    # trunc-table sectors, the path byte's sector, and two searches of
+    # `rounds` rounds of 8 sectors and one last sector each
+    step_bytes = 2 * 128 + 32 + 2 * 32 + 32 + 2 * (rounds * 8 + 1) * 32
+    # the bound: one lane's chain of dependent loads, which no width beats
+    latency_ms = kernels_us(kernel_narrow, reps=10).get("beam_steps_kernel", 0.0) / 1e3
+    return {
+        "span_rows": npk, "search_rounds": rounds, "dependent_loads_a_step": 2 + 2 * (rounds + 1),
+        "ms": kernels_us(kernel, reps=10).get("beam_steps_kernel", 0.0) / 1e3,
+        "ms_128_lanes": latency_ms,
+        "call_ms": event_ms(kernel, 10),
+        "plain_ms": event_ms(plain_block, 2, warm=1, stall=make_stall(seed["begin"].device)),
+        "bound_ms": latency_ms, "bound_by": "latency",
+        "sectors_ms": live_lane_steps * step_bytes / PEAK_BYTES_PER_S * 1e3,
     }
 
 
@@ -1762,6 +1972,7 @@ def discover_scored_phase(ss, rm, reference, want, build_s, reads):
         missing = [name for name in DISCOVER_KERNELS if launches[name] == 0]
         if missing:
             raise AssertionError(f"scored discovery launched no {missing} kernel")
+        require_route("scored discovery", stats, launches)
         out[run] = {"seconds": seconds, "stage_s": stats["stage_s"], "launches": launches}
     require_records("scored discovery", records, want)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1969,11 +2180,12 @@ def discovery_constants(**values):
             setattr(disc, k, v)
 
 
-def scored_calls(ss, rm, reference, want, name, **constants):
+def scored_calls(ss, rm, reference, want, name, fused=True, **constants):
     """The scored call (discovery with the readmap) cold and warm with the
     discovery module's constants set as given (``discovery_constants``).
-    Each call's records must be the JAX CPU leg's, tuple for tuple, and each
-    must launch every kernel of DISCOVER_KERNELS.  Returns (what to print,
+    Each call's records must be the JAX CPU leg's, tuple for tuple, each
+    must launch every kernel of DISCOVER_KERNELS, and its beam must take
+    the route ``fused`` names (``require_route``).  Returns (what to print,
     the last call's stats)."""
     out = {}
     with discovery_constants(**constants):
@@ -1983,9 +2195,10 @@ def scored_calls(ss, rm, reference, want, name, **constants):
             missing = [k for k in DISCOVER_KERNELS if launches[k] == 0]
             if missing:
                 raise AssertionError(f"{name} launched no {missing} kernel")
+            require_route(name, stats, launches, fused)
             out[run] = {"seconds": seconds, "stage_s": stats["stage_s"], "launches": launches}
     out.update(records=len(want), anchors_found=stats["anchors_found"], memory_plan=stats["memory_plan"],
-               beam_steps=stats.get("wave_steps", 0))
+               beam_steps=stats.get("wave_steps", 0), fused_beam_steps=stats.get("wave_fused_steps", 0))
     return out, stats
 
 
@@ -2025,7 +2238,8 @@ def discover_no_trunc_phase(ss, rm, reference, want, with_tables):
     wavefront truncates through the seqset's LtSearch), cold and warm, its
     records held to the JAX CPU leg's; the wavefront's seconds beside those
     of ``with_tables``, the warm call with them."""
-    out, stats = scored_calls(ss, rm, reference, want, "discovery without trunc tables", BUDGET_BYTES=TINY_BUDGET_BYTES)
+    out, stats = scored_calls(ss, rm, reference, want, "discovery without trunc tables", fused=False,
+                              BUDGET_BYTES=TINY_BUDGET_BYTES)
     if stats["memory_plan"]["use_trunc_tables"]:
         raise AssertionError(f"the tiny budget kept the trunc tables: {stats['memory_plan']}")
     out["wavefront_s"] = {"without_tables_warm": out["warm"]["stage_s"]["wavefront"],
@@ -3258,7 +3472,7 @@ def pipeline_sv_phase(dev, genome, tmp, library=None, want=None):
     return out, launches, out_dir, fa, truth["sv"]
 
 
-TRACE_KERNELS = ("push4", "push_front", "chain_window")  # what the traced discovery call must launch
+TRACE_KERNELS = ("push4", "push_front", "chain_window", "beam_steps")  # what the traced discovery call must launch
 PROGRAM_SPANS = ("discover.",)  # the program's spans' ranges in a trace (runtime/log.span), apart from the wrappers'
 TRACE_FLANK = 10_000  # the traced region: the smallest planted SV and this many bases each side
 TRACE_SLACK_US = 100.0  # an event may overhang the command's range by this much (the device's clock mapped to the host's)
@@ -4826,6 +5040,8 @@ def main():
     say(phase="discover_checks", ok=True, seconds=seconds, **checks)
     holds, seconds = timed(lambda: discover_kernel_holds(ss, reference, found_by["anchors_found"]))
     say(phase="discover_kernel_holds", ok=True, max_abs_err=0, seconds=seconds, **holds)
+    beam, seconds = timed(lambda: beam_steps_checks(ss, reference, insertion_library(dev)))
+    say(phase="beam_steps_checks", ok=True, max_abs_err=0, card=card, seconds=seconds, **beam)
     small, seconds = timed(lambda: small_genome_checks(dev))
     say(phase="small_genome_checks", ok=True, seconds=seconds, **small)
 
@@ -4922,6 +5138,13 @@ def main():
     breakdown = profile_to is not None
     launches["chain_fixed"] = chain_fixed_launches
     rows = kernel_table(ss, launches, found, find_step, text, probe_pos, probe_m, probe_m_mixed, cov_slab, breakdown)
+    # beam_steps is off the main path: its row is beam_steps_checks' block
+    rows.append({
+        "name": "beam_steps", "route": "cuda", "source": "biograph_tpu_torch/csrc/beam_steps.cu",
+        "replaces": REPLACES["beam_steps"], "launches": launches["beam_steps"], "max_abs_err": 0,
+        "case": f"{beam['lanes']} lanes, one block of {beam['steps']} steps from the seed",
+        **{k: beam[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "sectors_ms")},
+    })
     for r in rows:
         r["launches_discover"] = found_by["warm"]["launches"][r["name"]]
         r["launches_discover_scored"] = scored["warm"]["launches"][r["name"]]

@@ -427,8 +427,13 @@ def test_discovery_spans_of_one_call(world, recording):
     roots = [s for s in got if s.parent < 0]
     assert [s.name for s in roots] == ["discover.call"]
     names = {s.name for s in got}
-    assert set(DISCOVERY_SPANS) <= names and all(n.startswith("discover.") or n in WRAPPER_NAMES for n in names)
-    assert {got[s.parent].name for s in got if s.name == "push4"} >= {"discover.anchors", "discover.wavefront.steps"}
+    assert set(DISCOVERY_SPANS) <= names and all(n.startswith("discover.") or n in WRAPPER_NAMES + ["beam_steps"] for n in names)
+    # push4 in the anchor scan and, on CPU tensors, in beam_steps' plain
+    # version; every block of beam steps one beam_steps call
+    assert {got[s.parent].name for s in got if s.name == "push4"} == {"discover.anchors", "beam_steps"}
+    assert {got[s.parent].name for s in got if s.name == "beam_steps"} == {"discover.wavefront.steps"}
+    fused = [s.counts.get("fused") for s in got if s.name == "discover.wavefront.steps"]
+    assert sum(fused) == traced_stats["wave_fused_steps"] == traced_stats["wave_steps"]
     for s in got:
         if s.parent >= 0:
             p = got[s.parent]
@@ -613,6 +618,7 @@ def test_kernels_a_launch_reads_the_sources():
     cs = _chip_smoke()
     assert {k: cs.kernels_a_launch(k) for k in cs.TRACE_KERNELS} == {
         "push4": ({"push4_kernel"}, 1), "push_front": ({"push_front_kernel"}, 1), "chain_window": ({"chain_window_kernel"}, 1),
+        "beam_steps": ({"beam_steps_kernel"}, 1),
     }
     assert cs.kernels_a_launch("chain_fixed") == cs.kernels_a_launch("chain_window")
     assert cs.kernel_function("void chain_window_kernel<true>(ulonglong2 const*, int)", {"chain_window_kernel"}) == "chain_window_kernel"

@@ -237,7 +237,10 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
         chip_smoke.discover_checks(dev, ss, rm_cpu.seqset, reference, genome, records[:1], snp, donor, starts, 100)
     holds = chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"])
     assert holds["anchors"] == dstats["anchors_found"] > 0 and len(holds["chain_window_mean_m"]) == 4
-    assert holds["push_front_calls_by_lanes"] and sum(holds["push4_calls_by_lanes"].values()) == 1 + holds["beam_steps"]
+    # push4 in the anchor scan; every block of beam steps one beam_steps call
+    assert holds["push_front_calls_by_lanes"] and sum(holds["push4_calls_by_lanes"].values()) == 1
+    assert holds["fused_beam_steps"] == holds["beam_steps"] > 0
+    assert sum(holds["beam_steps_calls_by_lanes"].values()) >= holds["beam_steps"] / chip_smoke.disc.CHECK_EVERY
     with pytest.raises(AssertionError, match="the replayed front end found"):
         chip_smoke.discover_kernel_holds(ss, reference, dstats["anchors_found"] + 1)
     small = chip_smoke.small_genome_checks(dev)
