@@ -43,6 +43,7 @@ from biograph_tpu_torch import resolve_device
 from biograph_tpu_torch.core import container, dna
 from biograph_tpu_torch.index import probes
 from biograph_tpu_torch.ops import rank4 as rank4_ops
+from biograph_tpu_torch.runtime import log as _log
 
 _TENSOR_FIELDS = ("offsets", "read_lengths", "is_forward", "mate_pair_ptr", "read_ids")
 ENTRY_CHUNK = 1 << 17  # full-length entries hashed a chunk
@@ -365,12 +366,16 @@ class Readmap:
         rows = max(min(SLAB_LANES // Lp, Bp), 1)
         rows = 1 << (rows.bit_length() - 1)
         lens, grp = self.length_groups
+        wh = self.window_hash if (uniform and use_hash) else None
+        if _log.tracing():
+            # the rows each route probes (a traced run's route counter)
+            route = "hash" if wh is not None else "chain_fixed" if uniform else "general"
+            _log.count(**{"route_" + route: int(np.count_nonzero(lp))})
         outs = []
         for r0 in range(0, Bp, rows):
             P = rows * Lp
             pos = torch.arange(P, dtype=torch.int64, device=dev) + r0 * Lp
             slab = text[r0 * Lp : r0 * Lp + P]
-            wh = self.window_hash if (uniform and use_hash) else None
             if wh is not None:
                 keys, ids, _ = wh
                 b, e, s = _uniform_hash_probe(keys, ids, slab, *_hash_pows(P, dev), Lp, depth)

@@ -6,13 +6,14 @@ module-level logger (timestamped, level-tagged, optionally teed to a file)
 and a Progress record of stages with their wall and CPU time.
 
 The span recorder: ``span(name, **counts)`` marks a block of the program,
-``add_span`` records one already finished (a stage clock's mark), and
-``take_spans()`` hands over what was recorded.  A span holds its name, its
-start and end in ``time.time_ns()`` nanoseconds (the clock the profiler
-stamps its events with, so spans lie on a trace's timeline), the index of
-its parent and a few integer counts.  The recorder is on exactly while a
-profiler runs (``tracing()``, whoever started it); off, a span costs that
-one check and records nothing.
+``add_span`` records one already finished (a stage clock's mark),
+``count(**counts)`` adds to the innermost open span's counts (counts of one
+name add up), and ``take_spans()`` hands over what was recorded.  A span
+holds its name, its start and end in ``time.time_ns()`` nanoseconds (the
+clock the profiler stamps its events with, so spans lie on a trace's
+timeline), the index of its parent and a few integer counts.  The
+recorder is on exactly while a profiler runs (``tracing()``, whoever
+started it); off, a span costs that one check and records nothing.
 
 ``maybe_profile(tag, out_dir)`` is the JAX package's per-command device
 trace with an argument where that package reads ``BGT_PROFILE_DIR``: a
@@ -185,6 +186,12 @@ def span(name: str, **counts):
     return _On(name, counts)
 
 
+def count(**counts) -> None:
+    """Add ``counts`` to the innermost open span, while a profiler runs."""
+    if _open and tracing():
+        _count(_open[-1], counts)
+
+
 def add_span(name: str, start_ns: int, end_ns: int, **counts) -> None:
     """Record a finished span, inside the innermost open one, while a
     profiler runs.  The spans of the same parent recorded inside its
@@ -204,7 +211,7 @@ def _spans(first: int = 0) -> list:
     counts = [{} for _ in range(len(_name) - first)]
     for i, k, v in zip(_count_span, _count_name, _count_value):
         if i >= first:
-            counts[i - first][k] = v
+            counts[i - first][k] = counts[i - first].get(k, 0) + v
     return [Span(*row, c) for row, c in zip(zip(_name[first:], _start[first:], _end[first:], _parent[first:]), counts)]
 
 

@@ -13,6 +13,13 @@ one host copy a batch.  Everything after it (window statistics, genotypes,
 PL and GQ) is numpy float64, as in the JAX package, so the numbers are the
 same, not close.  ``run_coverage_parallel`` fans region chunks out to
 spawned processes, each opening the sample on the caller's device.
+
+While a profiler runs, ``run_coverage`` records its spans
+(``runtime/log.span``): ``coverage.call``, ``coverage.annotate`` (counts
+``records``, ``queries``) with a ``coverage.annotate.walk`` a batch,
+``coverage.pairs`` with ``.reads``, ``.place`` (counts ``reads``) and
+``.count`` (``records``), ``coverage.phase`` (``variants/phase.py``) and
+``coverage.write``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from scipy.special import gammaln
 
 from biograph_tpu_torch.core import dna
 from biograph_tpu_torch.io.vcf import VcfRecord, VcfWriter, read_vcf
+from biograph_tpu_torch.runtime import log as _log
 
 WIN_CAP = 192  # alleles longer than 2 * WIN_CAP + C score at their breakpoints
 BATCH = 128  # records a coverage batch
@@ -134,6 +142,12 @@ def annotate_coverage(readmap, reference, records: List[VcfRecord], batch: int =
             np.zeros(0, np.int32), np.zeros(0, np.int32), [], np.zeros(0, np.int32),
             np.zeros((0, 3), np.int32), [],
         )
+    with _log.span("coverage.annotate", records=len(records)):
+        return _annotate(readmap, reference, records, batch)
+
+
+def _annotate(readmap, reference, records: List[VcfRecord], batch: int) -> CoverageAnnotation:
+    """``annotate_coverage`` of a non-empty list of records."""
     ref_flat = np.asarray(reference.flat)
     C = int(readmap.max_read_len) + 2
     N = len(records)
@@ -204,8 +218,10 @@ def annotate_coverage(readmap, reference, records: List[VcfRecord], batch: int =
                 emit(ri, ai, left, dna.seq_to_codes(alt_str), right)
             emit(ri, -1, left, ref_allele, right)
         qc, ql = _padded(queries)
-        fwd, rev = readmap.coverage(qc, ql)
-        tot = (fwd + rev).cpu().numpy()
+        _log.count(queries=len(queries))  # on coverage.annotate
+        with _log.span("coverage.annotate.walk", queries=len(queries)):
+            fwd, rev = readmap.coverage(qc, ql)
+            tot = (fwd + rev).cpu().numpy()
         depth_min: dict = {}
         for i, (ri, ai) in enumerate(zip(owners, alleles)):
             lo_b, hi_b = spans[i]
@@ -331,15 +347,24 @@ def annotate_pair_coverage(readmap, reference, records: List[VcfRecord], max_fra
     readmap, are placed on the donor genome, and read pairs with both mates
     placed within max_frag on opposite strands whose span covers the
     variant are counted.  Returns int32 [N] pair counts."""
-    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads
-
     N = len(records)
     if N == 0 or readmap is None:
         return np.zeros(N, np.int32)
+    with _log.span("coverage.pairs"):
+        return _pair_coverage(readmap, reference, records, max_frag)
+
+
+def _pair_coverage(readmap, reference, records: List[VcfRecord], max_frag: int) -> np.ndarray:
+    """``annotate_pair_coverage`` of a non-empty list of records."""
+    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads
+
+    N = len(records)
     rm = readmap
     loop = rm.mate_pair_ptr.cpu().numpy()
     mate2 = loop[loop]  # the mate's forward entry (fwd -> rc -> mate's fwd); self if unpaired
-    fwd_ids, codes, lens = sample_reads(rm)
+    with _log.span("coverage.pairs.reads") as sp:
+        fwd_ids, codes, lens = sample_reads(rm)
+        sp.set(reads=len(lens))
     # the donor with the first alt allele of every record applied (symbolic
     # and non-ACGT alleles are left out and get no pair count)
     ref_flat = np.asarray(reference.flat)
@@ -356,8 +381,9 @@ def annotate_pair_coverage(readmap, reference, records: List[VcfRecord], max_fra
             flat_records.append((p0, dna.seq_to_codes(rec.ref), dna.seq_to_codes(alt1)))
     order = sorted((i for i in range(N) if valid[i]), key=lambda i: flat_records[i][0])
     donor, donor_of_ref, _ = build_donor(ref_flat, [flat_records[i] for i in order])
-    idx = RefKmerIndex.build(donor, 13, device=rm.device)
-    pl = place_reads(idx, codes, lens, max_mismatches=3)
+    with _log.span("coverage.pairs.place", reads=len(lens)):
+        idx = RefKmerIndex.build(donor, 13, device=rm.device)
+        pl = place_reads(idx, codes, lens, max_mismatches=3)
 
     # the readmap's forward entry -> its index among the forward entries
     pos_of_fwd = np.full(rm.num_entries, -1, np.int64)
@@ -376,14 +402,15 @@ def annotate_pair_coverage(readmap, reference, records: List[VcfRecord], max_fra
     sel = np.nonzero(frag_ok)[0]
     a, b = a[sel], b[sel]
     pc = np.zeros(N, np.int32)
-    for i in range(N):
-        if not valid[i]:
-            continue
-        p0, ra, aa = flat_records[i]
-        dlo = int(donor_of_ref[p0])
-        dhi = dlo + len(aa)
-        cover = (a <= dlo) & (b >= dhi)
-        pc[i] = int(cover.sum()) // 2  # each pair is counted from both mates
+    with _log.span("coverage.pairs.count", records=N):
+        for i in range(N):
+            if not valid[i]:
+                continue
+            p0, ra, aa = flat_records[i]
+            dlo = int(donor_of_ref[p0])
+            dhi = dlo + len(aa)
+            cover = (a <= dlo) & (b >= dhi)
+            pc[i] = int(cover.sum()) // 2  # each pair is counted from both mates
     return pc
 
 
@@ -418,49 +445,51 @@ def run_coverage(
     '|'-phased blocks with PS tags; joint_graph genotypes through the
     variant-graph path walk (``variants/vargraph.py``) and adds VG, the best
     edge traversal count.  The sample's device is its readmap's."""
-    records = read_vcf(vcf_in)
-    ann = annotate_coverage(biograph.readmap, reference, records)
-    vg = None
-    if joint_graph:
-        from biograph_tpu_torch.variants.vargraph import evaluate_vargraph
+    with _log.span("coverage.call"):
+        records = read_vcf(vcf_in)
+        ann = annotate_coverage(biograph.readmap, reference, records)
+        vg = None
+        if joint_graph:
+            from biograph_tpu_torch.variants.vargraph import evaluate_vargraph
 
-        vg = evaluate_vargraph(biograph.readmap, reference, records)
-        ann.gt[:] = vg.gt
-    if pair_cov:
-        pc = annotate_pair_coverage(biograph.readmap, reference, records)
-    else:
-        pc = np.zeros(len(records), np.int32)
-    gt = ann.gt
-    ps = [None] * len(records)
-    if phase:
-        from biograph_tpu_torch.variants.phase import phase_records
+            vg = evaluate_vargraph(biograph.readmap, reference, records)
+            ann.gt[:] = vg.gt
+        if pair_cov:
+            pc = annotate_pair_coverage(biograph.readmap, reference, records)
+        else:
+            pc = np.zeros(len(records), np.int32)
+        gt = ann.gt
+        ps = [None] * len(records)
+        if phase:
+            from biograph_tpu_torch.variants.phase import phase_records
 
-        pr = phase_records(biograph.readmap, reference, records, gt)
-        gt, ps = pr.gt, pr.ps
-    with VcfWriter(
-        vcf_out,
-        sample=sample,
-        contigs=[(c.name, c.length) for c in reference.contigs],
-        extra_headers=COVERAGE_HEADERS,
-    ) as w:
-        for i, rec in enumerate(records):
-            dp = int(ann.alt_depth[i] + ann.ref_depth[i])
-            rec.info["DP"] = dp
-            rec.info["PC"] = int(pc[i])
-            if vg is not None:
-                rec.info["VG"] = int(max(vg.edge_reads[i].max(initial=0), 0))
-            rec.fmt = {
-                "GT": gt[i],
-                "GQ": int(ann.gq[i]),
-                "AD": ann.ad[i],
-                "PL": ",".join(str(int(x)) for x in ann.pl[i]),
-                "DP": dp,
-            }
-            if ps[i] is not None:
-                rec.fmt["PS"] = int(ps[i])
-            w.write(rec)
-    if features_out:
-        np.savez(features_out, **feature_matrix(records, ann, pc))
+            pr = phase_records(biograph.readmap, reference, records, gt)
+            gt, ps = pr.gt, pr.ps
+        with _log.span("coverage.write"):
+            with VcfWriter(
+                vcf_out,
+                sample=sample,
+                contigs=[(c.name, c.length) for c in reference.contigs],
+                extra_headers=COVERAGE_HEADERS,
+            ) as w:
+                for i, rec in enumerate(records):
+                    dp = int(ann.alt_depth[i] + ann.ref_depth[i])
+                    rec.info["DP"] = dp
+                    rec.info["PC"] = int(pc[i])
+                    if vg is not None:
+                        rec.info["VG"] = int(max(vg.edge_reads[i].max(initial=0), 0))
+                    rec.fmt = {
+                        "GT": gt[i],
+                        "GQ": int(ann.gq[i]),
+                        "AD": ann.ad[i],
+                        "PL": ",".join(str(int(x)) for x in ann.pl[i]),
+                        "DP": dp,
+                    }
+                    if ps[i] is not None:
+                        rec.fmt["PS"] = int(ps[i])
+                    w.write(rec)
+            if features_out:
+                np.savez(features_out, **feature_matrix(records, ann, pc))
     return ann
 
 

@@ -7,7 +7,9 @@ through ``Readmap.coverage_events`` in one batch; cis or trans evidence joins
 them into phase blocks, ambiguity or missing evidence splits them.  Output:
 '|'-phased GT strings and PS (phase-set) tags, PS being the position of the
 block's first variant.  The events are counted on the readmap's device and
-copied to the host once a batch; the rest is numpy.
+copied to the host once a batch; the rest is numpy.  While a profiler
+runs, ``phase_records`` is the span ``coverage.phase``, counting the het
+records it links (``het``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 from biograph_tpu_torch.core import dna
 from biograph_tpu_torch.io.vcf import VcfRecord
+from biograph_tpu_torch.runtime import log as _log
 from biograph_tpu_torch.variants.coverage_tool import _padded
 
 
@@ -48,6 +51,14 @@ def phase_records(
     gt: the unphased genotype of each record (from annotate_coverage).  Only
     plain ACGT single-alt records take part; multi-allelic and symbolic ones
     stay unphased."""
+    with _log.span("coverage.phase") as sp:
+        out = _phase(readmap, reference, records, gt, min_link, batch)
+        sp.set(het=out.n_linked)
+    return out
+
+
+def _phase(readmap, reference, records: List[VcfRecord], gt: List[str], min_link: int, batch: int) -> PhaseResult:
+    """``phase_records``."""
     N = len(records)
     out_gt = list(gt)
     out_ps: List[Optional[int]] = [None] * N

@@ -199,6 +199,26 @@ def test_recorder_records_under_a_profiler(recording, tmp_path, how):
         assert len(ops) == 1 and within(ops[0], a_range)
 
 
+def test_count_adds_to_the_innermost_open_span(recording):
+    """``count`` adds to the innermost open span, counts of one name adding
+    up; with no span open, or no profiler, it records nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log.count(n=1)
+    with log.span("off"):
+        log.count(n=1)
+    assert log.take_spans() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        log.count(n=5)
+        with log.span("outer", n=1) as outer:
+            log.count(n=2)
+            with log.span("inner"):
+                log.count(m=3)
+                log.count(m=4)
+            outer.set(n=10)
+    assert [(s.name, s.counts) for s in log.take_spans()] == [("outer", {"n": 13}), ("inner", {"m": 7})]
+
+
 def test_spans_nest(recording):
     """A span's parent is the innermost span open at its start; a finished
     span added later adopts the spans of its parent recorded inside it."""
@@ -448,6 +468,78 @@ def test_discovery_spans_of_one_call(world, recording):
     steps = {i for i, s in enumerate(got) if s.name == "discover.wavefront.steps"}
     assert all(got[s.parent].name == "discover.wavefront.steps" for s in got if s.name == "discover.wavefront.poll")
     assert all(got[i].counts["lanes"] > 0 for i in steps)
+
+
+# each coverage span and the span it lies in
+COVERAGE_SPANS = {
+    "coverage.call": None,
+    "coverage.annotate": "coverage.call",
+    "coverage.annotate.walk": "coverage.annotate",
+    "coverage.pairs": "coverage.call",
+    "coverage.pairs.reads": "coverage.pairs",
+    "coverage.pairs.place": "coverage.pairs",
+    "coverage.pairs.count": "coverage.pairs",
+    "coverage.phase": "coverage.call",
+    "coverage.write": "coverage.call",
+}
+
+
+def test_coverage_spans_of_one_call(world, recording, tmp_path):
+    """A traced run_coverage call with pair coverage, phasing and features:
+    every coverage span once (the walk once a batch), nested as listed,
+    with its counts, the coverage routes counted in the spans they ran in;
+    the same VCF as an untraced call, which leaves the recorder empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biograph_tpu_torch.api import BioGraph
+    from biograph_tpu_torch.cli import _load_reference
+    from biograph_tpu_torch.io.vcf import VcfRecord, VcfWriter
+    from biograph_tpu_torch.variants.coverage_tool import BATCH, run_coverage
+
+    cs = _chip_smoke()
+    _, _, fa, bgt, _ = world
+    genome = cs.leg_genome(TOY_GENOME)
+    _, lengths, truth = cs.sv_paired_library(genome, **TOY, error_rate=0.0)
+    bg, ref = BioGraph(bgt, device="cpu"), _load_reference(fa)
+    vin = str(tmp_path / "in.vcf")
+    small = sorted(truth["small"])
+    with VcfWriter(vin, sample="S", contigs=[(c.name, c.length) for c in ref.contigs]) as w:
+        for p, r, a in small:
+            w.write(VcfRecord(chrom=ref.contigs[0].name, pos=p + 1, ref=r, alt=a))
+
+    def call(name):
+        run_coverage(vin, str(tmp_path / f"{name}.vcf"), bg, ref, sample="S", features_out=str(tmp_path / f"{name}.npz"))
+        return vcf_text(tmp_path / f"{name}.vcf")
+
+    plain = call("plain")
+    assert log.take_spans() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = call("traced")
+    got = log.take_spans()
+    assert traced == plain
+    names = [s.name for s in got if s.name.startswith("coverage.")]
+    batches = -(-len(small) // BATCH)
+    assert sorted(names) == sorted(list(COVERAGE_SPANS) + ["coverage.annotate.walk"] * (batches - 1))
+    for s in got:
+        if s.name in COVERAGE_SPANS:
+            parent = got[s.parent].name if s.parent >= 0 else None
+            assert parent == COVERAGE_SPANS[s.name], (s.name, parent)
+            if s.parent >= 0:
+                p = got[s.parent]
+                assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    one = {s.name: s.counts for s in got if s.name.startswith("coverage.") and s.name != "coverage.annotate.walk"}
+    walks = [s.counts for s in got if s.name == "coverage.annotate.walk"]
+    reads = int(bg.readmap.read_count)
+    assert len(lengths) == reads
+    assert one["coverage.annotate"]["records"] == len(small)
+    assert one["coverage.annotate"]["queries"] == sum(w["queries"] for w in walks) == 2 * len(small)
+    # mixed read lengths: every coverage probe takes the general route
+    assert sum(w["route_general"] for w in walks) == 2 * len(small)
+    assert not any(k.startswith("route_") and k != "route_general" for w in walks for k in w)
+    assert one["coverage.pairs.reads"] == {"reads": reads} and one["coverage.pairs.place"] == {"reads": reads}
+    assert one["coverage.pairs.count"] == {"records": len(small)}
+    assert set(one["coverage.phase"]) <= {"het", "route_general"} and one["coverage.phase"]["het"] >= 0
+    assert one["coverage.call"] == {} and one["coverage.write"] == {}
 
 
 def test_discovery_profile_holds_the_calls_spans(world, tmp_path):
