@@ -427,17 +427,14 @@ class _SeqsetDevice(_WidenFamily):
             )
         return entry
 
-    def sequences(self, entries, max_len: int) -> torch.Tensor:
+    def sequences(self, entries, max_len: int, lengths=None) -> torch.Tensor:
         """The first max_len bases of each entry id via pop chains: uint8
-        [B, max_len]."""
-        cur = self._t(entries, torch.int64)
-        out = torch.zeros(
-            (cur.shape[0], max_len), dtype=torch.uint8, device=self.device
+        [B, max_len].  With ``lengths`` [B], the bases from each lane's
+        length on are 0.  One launch of the sequences kernel on the card."""
+        lengths = None if lengths is None else self._t(lengths, torch.int32).contiguous()
+        return rank4_ops.sequences(
+            self.pop_sel, self.fixed, self._t(entries, torch.int64).contiguous(), max_len, lengths
         )
-        for i in range(max_len):
-            out[:, i] = self.entry_first_base(cur).to(torch.uint8)
-            cur = self.entry_pop_front(cur)
-        return out
 
     # -- the widen family's reads (``_WidenFamily``) --
 

@@ -43,7 +43,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_kernels_build")
 KERNELS = (
     "rank4", "rank4_tiled", "gather_sizes", "push4", "push_front",
-    "chain_window", "rank_cum", "beam_steps",
+    "chain_window", "rank_cum", "beam_steps", "sequences",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

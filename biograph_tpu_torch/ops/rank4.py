@@ -1,5 +1,5 @@
 """The seqset's rank kernels: rank4 and rank, gather_sizes, push4 and
-push_front, chain_window, rank4_tiled (K1-K3, K5).
+push_front, chain_window, rank4_tiled (K1-K3, K5); beam_steps and sequences.
 
 They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
 
@@ -19,7 +19,10 @@ They replace the TPU kernels of ``biograph_tpu/ops/rank4.py``:
 and ``beam_steps`` replaces none: it is discovery's beam step
 (``variants/discover._wavefront_body``), push4's ranks and the step's
 selection, truncation and rejoin search, for a block of steps in one launch,
-where the JAX package left the step's array code to XLA's fusion.
+where the JAX package left the step's array code to XLA's fusion; nor does
+``sequences``: the pop-chain walk of ``Seqset.d.sequences`` (each entry's
+first bases, one ``pop_sel`` gather a base) for every lane in one launch,
+where the JAX package's ``lax.fori_loop`` is fused by XLA.
 
 The TPU kernels turn the gathers into one-hot matrix products over
 byte-limb tables, because random gathers are what that machine lacks; that
@@ -360,6 +363,20 @@ def chain_window_plain(blocks, entry_sizes, fixed, win, m, depth: int):
         end = torch.where(started, ne, end)
         size = torch.where(started, ns, size)
     return begin, end, size
+
+
+def sequences_plain(pop_sel, fixed, entries, max_len: int, lengths=None) -> torch.Tensor:
+    """Plain version of ``sequences``: the pop-chain walk a base at a time
+    over every lane, then the bases from each lane's length on set to 0."""
+    cur = entries
+    out = torch.zeros((entries.shape[0], max_len), dtype=torch.uint8, device=entries.device)
+    for i in range(max_len):
+        ge = [(cur >= fixed[k]).to(torch.int32) for k in (1, 2, 3)]
+        out[:, i] = (ge[0] + ge[1] + ge[2]).to(torch.uint8)
+        cur = pop_sel[cur]
+    if lengths is not None:
+        out.masked_fill_(torch.arange(max_len, device=out.device) >= lengths[:, None], 0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -859,3 +876,45 @@ def _chain(entry, blocks, entry_sizes, fixed, win, m, depth: int):
 
 
 chain_fixed.launches = 0
+
+
+@_build.traced("sequences", 2)
+def sequences(pop_sel, fixed, entries, max_len: int, lengths=None) -> torch.Tensor:
+    """The first max_len bases of each entry by its pop chain, every lane in
+    one launch: uint8 [B, max_len], what ``Seqset.d.sequences`` gives.  With
+    ``lengths`` the bases from each lane's length on are 0, and its walk
+    stops there.
+
+    pop_sel int64 [n>0], the select table; fixed int64 [5]; entries int64
+    [B] in [0, n), which the kernel asserts at each gather; lengths int32 [B]
+    or None; max_len >= 0."""
+    if (
+        pop_sel.dtype != torch.int64 or pop_sel.dim() != 1 or pop_sel.shape[0] == 0
+        or fixed.dtype != torch.int64 or fixed.shape != (5,)
+        or entries.dtype != torch.int64 or entries.dim() != 1
+        or lengths is not None and (lengths.dtype != torch.int32 or lengths.shape != entries.shape)
+    ):
+        raise TypeError(
+            "sequences: want pop_sel int64 [n>0], fixed int64 [5], entries int64 [B], lengths int32 [B] or None"
+        )
+    if max_len < 0:
+        raise ValueError("sequences: max_len must be >= 0")
+    tensors = (pop_sel, fixed, entries) + (() if lengths is None else (lengths,))
+    if {t.device.type for t in tensors} == {"cpu"}:
+        return sequences_plain(pop_sel, fixed, entries, max_len, lengths)
+    _check_cuda("sequences", *tensors)
+    B = entries.shape[0]
+    out = torch.empty((B, max_len), dtype=torch.uint8, device=entries.device)
+    if B == 0 or max_len == 0:
+        return out
+    _build.launch(
+        "sequences", "bgt_sequences", [_VP] * 5 + [_LL, _LL, ctypes.c_int], entries.device,
+        _build.ptr(pop_sel), _build.ptr(fixed), _build.ptr(entries),
+        None if lengths is None else _build.ptr(lengths), _build.ptr(out),
+        pop_sel.shape[0], B, max_len,
+    )
+    sequences.launches += 1
+    return out
+
+
+sequences.launches = 0

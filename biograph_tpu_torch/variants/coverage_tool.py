@@ -37,7 +37,6 @@ from biograph_tpu_torch.runtime import log as _log
 
 WIN_CAP = 192  # alleles longer than 2 * WIN_CAP + C score at their breakpoints
 BATCH = 128  # records a coverage batch
-READ_CHUNK = 1 << 14  # reads rebuilt a chunk for pair coverage
 
 
 def genotyper_log10(tot_cov: np.ndarray, alt_cov: np.ndarray, priors=(0.05, 0.5, 0.95)):
@@ -327,19 +326,16 @@ def _annotate(readmap, reference, records: List[VcfRecord], batch: int) -> Cover
 def sample_reads(readmap):
     """The sample's reads rebuilt from the store, forward orientation:
     (forward readmap entries int64 [R], codes uint8 [R, L], lengths int32
-    [R]), on the host.  The bases come from ``Seqset.d.sequences`` a chunk
-    of READ_CHUNK reads at a time, on the readmap's device."""
+    [R]), on the host, each read's bases past its length 0.  The bases come
+    from one ``Seqset.d.sequences`` call over every read, each read's walk
+    stopped at its length, on the readmap's device."""
     rm = readmap
     fwd_ids = torch.nonzero(rm.is_forward)[:, 0]
-    entries = rm.entry_of_rm[fwd_ids]
-    lens = rm.read_lengths[fwd_ids].cpu().numpy()
-    L = int(lens.max(initial=1))
-    codes = np.zeros((len(lens), L), np.uint8)
-    for lo in range(0, len(lens), READ_CHUNK):
-        hi = min(len(lens), lo + READ_CHUNK)
-        codes[lo:hi] = rm.seqset.d.sequences(entries[lo:hi], L).cpu().numpy()
-    codes = np.where(np.arange(L)[None, :] < lens[:, None], codes, 0).astype(np.uint8)
-    return fwd_ids.cpu().numpy(), codes, lens
+    lens = rm.read_lengths[fwd_ids]
+    lens_host = lens.cpu().numpy()
+    L = int(lens_host.max(initial=1))
+    codes = rm.seqset.d.sequences(rm.entry_of_rm[fwd_ids], L, lens).cpu().numpy()
+    return fwd_ids.cpu().numpy(), codes, lens_host
 
 
 def annotate_pair_coverage(readmap, reference, records: List[VcfRecord], max_frag: int = 1000) -> np.ndarray:

@@ -99,11 +99,11 @@ engine and the SV pass's counts equal to the JAX package's CPU run
 of probabilities within 1e-5 of the file's, every stage done at its first
 attempt; it must launch rank_cum, push4, push_front and chain_window, and
 the first and the widest call of each in each stage (create's rank_cum,
-discovery's push4, push_front and chain_window, coverage's push_front and
-chain_window) is kept and held against its plain version on the same
-inputs.  ``--resume`` must run no stage and leave results.vcf as it was;
-``--resume --rerun`` of each stage gives its warm seconds and the same
-artifacts.  The SV engine then runs by parts on the leg's store (the split
+discovery's push4, push_front, chain_window and sequences, coverage's
+push_front, chain_window and sequences) is kept and held against its plain
+version on the same inputs.  ``--resume`` must run no stage and leave
+results.vcf as it was; ``--resume --rerun`` of each stage gives its warm
+seconds and the same artifacts.  The SV engine then runs by parts on the leg's store (the split
 events alone, the breakend walks alone), each equal to the file, and every
 clip cluster's walk on the card equals the host oracle on a CPU copy of
 the index; the walk's steps are counted, and its device operations over
@@ -173,7 +173,9 @@ three targets on 4096 ranges from find, and the 40-step drop walk of 4096
 lanes along the genome, equal the single device in every lane;
 ``sharded_pileup_step`` on a (2, 4) mesh of the rank's shards equals its
 CPU copy.
-Last, the rank kernels are timed side by side on a
+The ``kernels`` line holds each kernel at the main path's shapes and
+sequences at the coverage cell's (933 334 lanes of 150 bases, with and
+without lengths).  Last, the rank kernels are timed side by side on a
 rank structure that outgrows the card's L2 cache, where the rank-block table
 and the bucketing kernels of rank4_tiled are held against their plain
 versions too.
@@ -265,12 +267,14 @@ WRAPPERS = {
     "chain_fixed": rank4_ops.chain_fixed,
     "rank_cum": rank_cum_ops.rank_cum,
     "beam_steps": rank4_ops.beam_steps,
+    "sequences": rank4_ops.sequences,
 }
 # the kernels of the create-and-query path: chain_fixed is coverage's (its
 # uniform route without the hash index), which scored_checks drives; rank,
 # since push_front took find's steps, is the widen family's (widen_checks
-# counts it) and the sharded engine's (leg 7 must launch it)
-MAIN_PATH_KERNELS = tuple(name for name in WRAPPERS if name not in ("chain_fixed", "rank", "beam_steps"))
+# counts it) and the sharded engine's (leg 7 must launch it); sequences is
+# what rebuilds reads from a loaded store (discovery's set-up, pair coverage)
+MAIN_PATH_KERNELS = tuple(name for name in WRAPPERS if name not in ("chain_fixed", "rank", "beam_steps", "sequences"))
 SOURCES = {"rank": "rank4", "chain_fixed": "chain_window"}  # kernels whose source is not named after them
 REPLACES = {
     "rank4": "biograph_tpu/ops/rank4.py:134",
@@ -283,6 +287,7 @@ REPLACES = {
     "chain_fixed": "biograph_tpu/ops/rank4.py:407",
     "rank_cum": "biograph_tpu/ops/pallas_rank.py:89",
     "beam_steps": "none: the beam step, biograph_tpu/variants/discover.py:344-580, fused by XLA",
+    "sequences": "none: the pop-chain walk, biograph_tpu/index/seqset.py:522-536, a lax.fori_loop fused by XLA",
 }
 
 
@@ -880,6 +885,8 @@ def chain_sectors(d, win, m, depth):
 
 # One 32-byte sector: what a random read of 4 or 8 bytes moves.
 SECTOR = 32
+# the read rebuild of hg002_35x.coverage: its library's forward reads, 150 bases
+SEQUENCES_LANES, SEQUENCES_LEN = 933_334, 150
 
 
 def kernel_table(ss, launches, find_ranges, find_step, probe_text, probe_pos, probe_m, probe_m_mixed, coverage_slab, breakdown=False):
@@ -1179,6 +1186,34 @@ def kernel_table(ss, launches, find_ranges, find_step, probe_text, probe_pos, pr
     rows[-1]["one_row_ms"] = event_ms(lambda: rank_cum_ops.rank_cum(words[0]), 20, stall=stall)
     if breakdown:  # the scan kernel and the memset of its descriptors, apart
         rows[-1]["kernels_us"] = kernels_us(lambda: rank_cum_ops.rank_cum(words))
+
+    # sequences as pair coverage calls it, at the coverage cell's size: its
+    # library's forward reads (SEQUENCES_LANES, every other one trimmed by
+    # 1-30 of SEQUENCES_LEN bases) walked in one launch, here from random
+    # entries of this store, held with and without the lengths.  The byte
+    # bound counts a sector a gather and the entries, lengths and output
+    # once; the operations, three compares a base.
+    gen = torch.Generator().manual_seed(SEED)
+    s_entries = torch.randint(0, n, (SEQUENCES_LANES,), generator=gen).to(dev)
+    s_lengths = torch.full((SEQUENCES_LANES,), SEQUENCES_LEN, dtype=torch.int32)
+    s_lengths[1::2] -= torch.randint(1, 31, (SEQUENCES_LANES // 2,), generator=gen, dtype=torch.int32)
+    s_lengths = s_lengths.to(dev)
+    walk = (d.pop_sel, d.fixed, s_entries, SEQUENCES_LEN)
+    require_equal(f"sequences, {SEQUENCES_LANES} lanes x {SEQUENCES_LEN} without lengths",
+                  rank4_ops.sequences(*walk), rank4_ops.sequences_plain(*walk))
+    s_gathers = int((s_lengths.to(torch.int64) - 1).clamp(min=0).sum())
+    row(
+        "sequences",
+        lambda: rank4_ops.sequences(*walk, s_lengths),
+        lambda: rank4_ops.sequences_plain(*walk, s_lengths),
+        s_gathers * SECTOR + SEQUENCES_LANES * (8 + 4 + SEQUENCES_LEN),
+        3 * SEQUENCES_LANES * SEQUENCES_LEN,
+    )
+    rows[-1].update(
+        lanes=SEQUENCES_LANES, max_len=SEQUENCES_LEN, gathers=s_gathers,
+        no_lengths_ms=event_ms(lambda: rank4_ops.sequences(*walk), 20, stall=stall),
+        no_lengths_bound_ms=(SEQUENCES_LANES * (SEQUENCES_LEN - 1) * SECTOR + SEQUENCES_LANES * (8 + SEQUENCES_LEN)) / PEAK_BYTES_PER_S * 1e3,
+    )
     return rows
 
 
@@ -3043,7 +3078,7 @@ PIPELINE_STAGES = ("create", "discovery", "coverage", "grm", "qual_classifier")
 PIPELINE_KERNELS = ("rank_cum", "push4", "push_front", "chain_window")
 # the kernels each stage of the cold run must call, each call kept held
 # against its plain version
-PIPELINE_HOLDS = {"create": ("rank_cum",), "discovery": ("push4", "push_front", "chain_window"), "coverage": ("push_front", "chain_window")}
+PIPELINE_HOLDS = {"create": ("rank_cum",), "discovery": ("push4", "push_front", "chain_window", "sequences"), "coverage": ("push_front", "chain_window", "sequences")}
 BWT_QUERIES, BWT_ABSENT = 1 << 16, 4096
 
 
@@ -3061,6 +3096,7 @@ PIPELINE_CALL_SITES = {
     "rank": ("biograph_tpu_torch.ops.rank4", "rank", _plain_rank, (0,), 1),
     "push_front": ("biograph_tpu_torch.ops.rank4", "push_front", rank4_ops.push_front_blocks_plain, (0, 1, 2), 3),
     "chain_window": ("biograph_tpu_torch.index.probes", "chain_window", rank4_ops.chain_window_plain, (0, 1, 2), 4),
+    "sequences": ("biograph_tpu_torch.ops.rank4", "sequences", rank4_ops.sequences_plain, (0, 1), 2),
 }
 
 

@@ -346,6 +346,7 @@ def wrapper_args(ss, lanes):
         "chain_window": (blocks, sizes, fixed, win, m, depth),
         "chain_fixed": (blocks, sizes, fixed, (pos % 4).to(torch.uint8), depth),
         "rank_cum": (ss.prev_words[:, :lanes].contiguous(),),
+        "sequences": (d.pop_sel, fixed, pos, depth, (pos % (depth + 1)).to(torch.int32)),
     }
 
 
@@ -360,7 +361,8 @@ def tiny_seqset():
     return build_seqset(codes, np.full(40, 24, np.int32), device="cpu")
 
 
-WRAPPER_NAMES = ["rank4", "rank", "rank4_tiled", "gather_sizes", "push4", "push_front", "chain_window", "chain_fixed", "rank_cum"]
+WRAPPER_NAMES = ["rank4", "rank", "rank4_tiled", "gather_sizes", "push4", "push_front", "chain_window", "chain_fixed", "rank_cum",
+                 "sequences"]
 
 
 @pytest.mark.parametrize("name", WRAPPER_NAMES)
