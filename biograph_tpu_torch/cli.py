@@ -396,7 +396,7 @@ def _discovery_assemble(args, ref, dev):
     if bg.readmap is not None and not args.no_sv:
         # the pair/split SV pass (pop_tracer): events past the wavefront's
         # path cap, merged into the same records
-        from biograph_tpu_torch.variants.pop_tracer import discover_structural, reads_from_readmap
+        from biograph_tpu_torch.variants.pop_tracer import discover_structural
 
         t0 = time.time()
         sv_stats = stats.setdefault("sv", {})
@@ -406,7 +406,7 @@ def _discovery_assemble(args, ref, dev):
 
             sv_all = discover_structural_distributed(bg.readmap, ref, args.dist_dir)
         else:
-            codes, lens, mate = reads_from_readmap(bg.readmap)
+            codes, lens, mate = bg.readmap.forward_reads()
             sv_all = discover_structural(ref, codes, lens, mate_of=mate, device=dev, stats=sv_stats)
         seen = {(r["chrom"], r["pos"], r["ref"], r["alt"]) for r in recs}
         sv = [
@@ -496,12 +496,11 @@ def cmd_discovery(args):
         elif args.biograph:
             # the read set of the store itself, from seqset and readmap
             from biograph_tpu_torch.api import BioGraph
-            from biograph_tpu_torch.variants.pop_tracer import reads_from_readmap
 
             bg = BioGraph(args.biograph, device=dev)
             if bg.readmap is None:
                 raise SystemExit(f"{args.biograph}: no readmap")
-            codes, lengths, _ = reads_from_readmap(bg.readmap)
+            codes, lengths, _ = bg.readmap.forward_reads()
             num_reads = len(lengths)
         else:
             raise SystemExit("discovery --mode pileup needs --reads or --biograph")

@@ -48,6 +48,7 @@ from biograph_tpu_torch.runtime import log as _log
 _TENSOR_FIELDS = ("offsets", "read_lengths", "is_forward", "mate_pair_ptr", "read_ids")
 ENTRY_CHUNK = 1 << 17  # full-length entries hashed a chunk
 SLAB_LANES = 1 << 20  # (row, position) lanes a coverage slab, at most
+READ_CHUNK = 1 << 22  # forward reads rebuilt a ``sequences`` launch, at most
 
 
 @dataclass
@@ -188,6 +189,36 @@ class Readmap:
             "unpaired_reads": int((~paired & fwd).sum()),
             "unpaired_bases": int(lens[~paired & fwd].sum()),
         }
+
+    def forward_reads(self, read_slice: tuple | None = None):
+        """The library's reads rebuilt from the store, forward orientation:
+        (codes uint8 [r, L], lengths int32 [R], mate_of int64 [R]) on the
+        host, each read's bases past its length 0.  mate_of[i] is the index
+        of read i's mate among the forward reads, i itself where the read is
+        unpaired or its link lands on no forward read.
+
+        The bases come from ``Seqset.d.sequences`` on the readmap's device,
+        each read's walk stopped at its length, READ_CHUNK reads a launch.
+        ``read_slice=(lo, hi)`` rebuilds forward reads [lo, hi) only (r =
+        hi - lo rows); lengths and mate_of still cover all R reads."""
+        fwd = torch.nonzero(self.is_forward)[:, 0]
+        lens = self.read_lengths[fwd]
+        lens_host = lens.cpu().numpy()
+        R = len(lens_host)
+        L = int(lens_host.max(initial=1))
+        lo, hi = read_slice if read_slice is not None else (0, R)
+        entries, walk = self.entry_of_rm[fwd[lo:hi]], lens[lo:hi]
+        parts = [
+            self.seqset.d.sequences(entries[c : c + READ_CHUNK], L, walk[c : c + READ_CHUNK]).cpu().numpy()
+            for c in range(0, len(entries), READ_CHUNK)
+        ] or [np.zeros((0, L), np.uint8)]
+        codes = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        fwd_host = fwd.cpu().numpy()
+        loop = self.mate_pair_ptr.cpu().numpy()
+        index_of = np.full(self.num_entries, -1, np.int64)
+        index_of[fwd_host] = np.arange(R)
+        mate_of = index_of[loop[loop[fwd_host]]]  # fwd -> rc -> the mate's fwd
+        return codes, lens_host, np.where(mate_of >= 0, mate_of, np.arange(R))
 
     # ------------- read iteration (SDK surface) -------------
 

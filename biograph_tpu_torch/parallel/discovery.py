@@ -115,21 +115,20 @@ def discover_structural_distributed(
         _sv_scan_reads,
         discover_structural,
         merge_edge_tables,
-        reads_from_readmap,
     )
 
     opt = opt or SvOptions()
     nproc = process_count()
     pid = process_index()
     if nproc <= 1:
-        codes, lens, mate = reads_from_readmap(readmap)
+        codes, lens, mate = readmap.forward_reads()
         return discover_structural(reference, codes, lens, mate_of=mate, opt=opt, device=readmap.device)
 
     # the lengths and mate links of every read are cheap; codes only for
     # this process's slice
-    _, lens, mate = reads_from_readmap(readmap, read_slice=(0, 0))
+    _, lens, mate = readmap.forward_reads(read_slice=(0, 0))
     lo, hi = _slices(0, len(lens), nproc)[pid]
-    codes, _, _ = reads_from_readmap(readmap, read_slice=(lo, hi))
+    codes, _, _ = readmap.forward_reads(read_slice=(lo, hi))
     index = RefKmerIndex.build(
         np.asarray(reference.flat), opt.k, is_n=getattr(reference, "is_n", None), device=readmap.device
     )

@@ -3,7 +3,7 @@
 Counterpart of ``biograph_tpu/tools/export_aligned.py`` (the reference's
 export_aligned tool, python/biograph/tools/export_aligned.py: coverage over
 an input VCF, the aligned reads out as BAM).  Reads are rebuilt from the
-readmap (``pop_tracer.reads_from_readmap``, on the store's device), placed
+readmap (``Readmap.forward_reads``, on the store's device), placed
 on the reference by ``variants/align.place_reads`` (k-mer seeds of 13, every
 candidate verified by packed XOR/popcount) on ``device``, restricted to
 windows around the VCF's variants, and written through ``io/bamwrite``
@@ -69,10 +69,9 @@ def export_aligned(
     windows (or all placed reads without a VCF) to ``out_path`` (``.bam``
     for BAM, else SAM).  Returns the number of records written."""
     from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads
-    from biograph_tpu_torch.variants.pop_tracer import reads_from_readmap
 
     dev = resolve_device(device)
-    codes, lengths, mate_of = reads_from_readmap(bg.readmap)
+    codes, lengths, mate_of = bg.readmap.forward_reads()
     index = RefKmerIndex.build(reference.flat, SEED_K, reference.is_n, device=dev)
     pl = place_reads(index, codes, lengths, max_mismatches=max_mismatches)
 
@@ -120,9 +119,8 @@ def export_aligned(
                 # stored in reference orientation, as BAM does
                 seq_codes = (3 - seq_codes[::-1]).astype(np.uint8)
             rnext, pnext, tlen = "*", 0, 0
-            # mate_of links an unpaired read to itself
-            m = int(mate_of[i]) if mate_of is not None else i
-            if m != i and m >= 0:
+            m = int(mate_of[i])  # an unpaired read's mate is itself
+            if m != i:
                 flag |= FLAG_PAIRED | (FLAG_READ1 if i < m else FLAG_READ2)
                 if pl.pos[m] >= 0:
                     cm = contig_of(int(pl.pos[m]))

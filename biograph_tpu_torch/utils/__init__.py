@@ -48,14 +48,14 @@ def find_breakpoint_variants(bg, ref, contig: str, start: int, end: int, buf_len
     land within buf_len of ``start`` and ``end``, from the split/pair SV
     engine, so a large deletion between distant breakpoints is found
     without assembling the span.  Runs where the sample's readmap lies."""
-    from biograph_tpu_torch.variants.pop_tracer import SvOptions, discover_structural, reads_from_readmap
+    from biograph_tpu_torch.variants.pop_tracer import SvOptions, discover_structural
 
     if start >= end:
         raise ValueError("start must be < end")
     ref.contig_by_name(contig)
     if bg.readmap is None:
         raise ValueError("breakpoint search needs a readmap")
-    codes, lens, mate = reads_from_readmap(bg.readmap)
+    codes, lens, mate = bg.readmap.forward_reads()
     recs = discover_structural(ref, codes, lens, mate_of=mate, opt=SvOptions(min_sv_reads=min_support), device=bg.readmap.device)
     lo, hi = start - buf_len, end + buf_len
     out = []

@@ -3,7 +3,8 @@
 Counterpart of ``biograph_tpu/variants/align.py``: every read is seeded by
 exact k-mer lookups into a sorted reference k-mer table, then all candidate
 placements of all reads are verified in one vectorized mismatch count, with
-no per-read control flow.  Discovery's pair gate places reads with it.
+no per-read control flow.  Discovery's pair gate, coverage's pair count and
+the SV engine place reads with it; the first two pair them by ``proper_pairs``.
 
 k-mers are int64 (k <= 31); the packed words of reads and of the genome's
 phase packings are int64 holding 32-bit values, and the mismatch count is a
@@ -140,6 +141,29 @@ def place_reads(
         out_rc[lo:hi] = rc.cpu().numpy()
         out_mm[lo:hi] = mm.cpu().numpy()
     return Placements(pos=out_pos, is_rc=out_rc, mismatches=out_mm)
+
+
+def proper_pairs(placements: Placements, lengths: np.ndarray, mate_of: np.ndarray, max_frag: int):
+    """The proper-pair rule over the forward reads (``Readmap.forward_reads``):
+    read i and its mate ``mate_of[i]`` (i itself if unpaired) are a proper
+    pair when both are placed, on opposite strands, at most max_frag apart.
+
+    Returns (a, b, proper, half): each read's pair span [a, b) int64 [R],
+    from the lower start to the higher start plus read i's own length (the
+    mate's end too, as in the JAX package); the proper mask bool [R]; the
+    half-placed mask bool [R], a paired read of which one mate alone is
+    placed.  A proper pair is counted from both of its reads."""
+    pos, rc = placements.pos, placements.is_rc
+    placed = pos >= 0
+    paired = mate_of != np.arange(len(pos))
+    proper = (
+        paired & placed & placed[mate_of]
+        & (np.abs(pos - pos[mate_of]) <= max_frag)
+        & (rc != rc[mate_of])
+    )
+    a = np.minimum(pos, pos[mate_of])
+    b = np.maximum(pos, pos[mate_of]) + lengths
+    return a, b, proper, paired & (placed ^ placed[mate_of])
 
 
 def place_batch(index: RefKmerIndex, codes, lengths, max_mm: int, n_seeds: int, max_hits: int):

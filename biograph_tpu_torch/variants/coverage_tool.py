@@ -28,7 +28,6 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
-import torch
 from scipy.special import gammaln
 
 from biograph_tpu_torch.core import dna
@@ -323,21 +322,6 @@ def _annotate(readmap, reference, records: List[VcfRecord], batch: int) -> Cover
     )
 
 
-def sample_reads(readmap):
-    """The sample's reads rebuilt from the store, forward orientation:
-    (forward readmap entries int64 [R], codes uint8 [R, L], lengths int32
-    [R]), on the host, each read's bases past its length 0.  The bases come
-    from one ``Seqset.d.sequences`` call over every read, each read's walk
-    stopped at its length, on the readmap's device."""
-    rm = readmap
-    fwd_ids = torch.nonzero(rm.is_forward)[:, 0]
-    lens = rm.read_lengths[fwd_ids]
-    lens_host = lens.cpu().numpy()
-    L = int(lens_host.max(initial=1))
-    codes = rm.seqset.d.sequences(rm.entry_of_rm[fwd_ids], L, lens).cpu().numpy()
-    return fwd_ids.cpu().numpy(), codes, lens_host
-
-
 def annotate_pair_coverage(readmap, reference, records: List[VcfRecord], max_frag: int = 1000) -> np.ndarray:
     """Mate-pair support a variant: the sample's reads, rebuilt from the
     readmap, are placed on the donor genome, and read pairs with both mates
@@ -352,14 +336,11 @@ def annotate_pair_coverage(readmap, reference, records: List[VcfRecord], max_fra
 
 def _pair_coverage(readmap, reference, records: List[VcfRecord], max_frag: int) -> np.ndarray:
     """``annotate_pair_coverage`` of a non-empty list of records."""
-    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads
+    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads, proper_pairs
 
     N = len(records)
-    rm = readmap
-    loop = rm.mate_pair_ptr.cpu().numpy()
-    mate2 = loop[loop]  # the mate's forward entry (fwd -> rc -> mate's fwd); self if unpaired
     with _log.span("coverage.pairs.reads") as sp:
-        fwd_ids, codes, lens = sample_reads(rm)
+        codes, lens, mate_of = readmap.forward_reads()
         sp.set(reads=len(lens))
     # the donor with the first alt allele of every record applied (symbolic
     # and non-ACGT alleles are left out and get no pair count)
@@ -378,25 +359,10 @@ def _pair_coverage(readmap, reference, records: List[VcfRecord], max_frag: int) 
     order = sorted((i for i in range(N) if valid[i]), key=lambda i: flat_records[i][0])
     donor, donor_of_ref, _ = build_donor(ref_flat, [flat_records[i] for i in order])
     with _log.span("coverage.pairs.place", reads=len(lens)):
-        idx = RefKmerIndex.build(donor, 13, device=rm.device)
+        idx = RefKmerIndex.build(donor, 13, device=readmap.device)
         pl = place_reads(idx, codes, lens, max_mismatches=3)
-
-    # the readmap's forward entry -> its index among the forward entries
-    pos_of_fwd = np.full(rm.num_entries, -1, np.int64)
-    pos_of_fwd[fwd_ids] = np.arange(len(fwd_ids))
-    mate_idx = pos_of_fwd[mate2[fwd_ids]]  # an index into the forward arrays, or self
-    mate_c = np.clip(mate_idx, 0, len(fwd_ids) - 1)
-    placed = pl.pos >= 0
-    paired = (mate_idx != np.arange(len(fwd_ids))) & (mate_idx >= 0)
-    both = placed & paired & placed[mate_c]
-    frag_ok = both & (np.abs(pl.pos - pl.pos[mate_c]) <= max_frag)
-    frag_ok &= pl.is_rc != pl.is_rc[mate_c]  # proper orientation: opposite strands
-
-    # the pair's span on the donor
-    a = np.minimum(pl.pos, pl.pos[mate_c])
-    b = np.maximum(pl.pos + lens, pl.pos[mate_c] + lens)
-    sel = np.nonzero(frag_ok)[0]
-    a, b = a[sel], b[sel]
+    a, b, proper, _ = proper_pairs(pl, lens, mate_of, max_frag)
+    a, b = a[proper], b[proper]  # each proper pair's span on the donor
     pc = np.zeros(N, np.int32)
     with _log.span("coverage.pairs.count", records=N):
         for i in range(N):

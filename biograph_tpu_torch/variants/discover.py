@@ -58,8 +58,8 @@ package's front end are not ported.  The JAX package's
 block, chunk, interleaved and whole-device wavefront dispatch loops are
 replaced by one host loop with done-lane compaction, one ``beam_steps``
 launch a block of steps.  Its environment
-switches are module constants here: ``NO_PRESCREEN`` (``BGT_NO_PRESCREEN``)
-and ``BUDGET_BYTES`` (``BGT_HBM_BUDGET_BYTES``).
+switches are module constants: ``NO_PRESCREEN`` here (``BGT_NO_PRESCREEN``)
+and ``runtime.resources.BUDGET_BYTES`` (``BGT_HBM_BUDGET_BYTES``).
 
 While a profiler runs, a call records spans (``runtime/log.span``):
 ``discover.call`` around it; ``discover.prepare`` (the memory plan, the
@@ -95,6 +95,7 @@ from biograph_tpu_torch.ops import rank4 as rank4_ops
 from biograph_tpu_torch.ops.align_dp import align_blocks_batch
 from biograph_tpu_torch.ops.ltsearch import BLOCK as LT_BLOCK
 from biograph_tpu_torch.runtime import log as _log
+from biograph_tpu_torch.runtime.resources import MemoryBudget
 
 
 @dataclass
@@ -164,10 +165,6 @@ CHECK_EVERY = 48  # beam steps between polls of the undone count
 WAVE_LANES = 4096  # anchors pooled into one beam group, at least
 WAVE_COMPACT_MIN = 512  # never shrink a beam state below this width
 SPAN_TABLE_CAP = 1 << 23  # shared span table rows: 134 MB as two int64 arrays
-# the memory plan's budget in bytes: None budgets half the card's memory for
-# a seqset on the card and 4 GiB for one on the host; a number stands for
-# either (BGT_HBM_BUDGET_BYTES in the JAX package)
-BUDGET_BYTES = None
 # True takes the dense front end at any min_anchor_ctx (BGT_NO_PRESCREEN)
 NO_PRESCREEN = False
 _SENTINEL = torch.iinfo(torch.int64).max  # pad rows of the span tables
@@ -216,10 +213,11 @@ class _StageClock:
 def _discovery_memory_plan(ss: Seqset, G: int, stats: dict | None = None, engine=None):
     """Budget discovery's device-resident working set: the seqset core, the
     prescreen bitmap, the doubled reference, the two n-entry trunc tables
-    and the shared rejoin span table, against ``BUDGET_BYTES`` or else half
-    the card's memory (``torch.cuda.mem_get_info``), 4 GiB for a seqset on
-    the host.  The core is what the seqset holds on the query device: the
-    engine's tensors (rank-block table, entry sizes, shared, pop_sel,
+    and the shared rejoin span table, against ``MemoryBudget.detect``'s
+    budget (``runtime.resources``: half the card's memory, 4 GiB for a
+    seqset on the host, or ``resources.BUDGET_BYTES`` where it is set).
+    The core is what the seqset holds on the query device: the engine's
+    tensors (rank-block table, entry sizes, shared, pop_sel,
     fixed), its LtSearch over shared (counted whether or not a query has
     built it yet) and the stored rank pair where it lies there too.  Over
     budget the shared span table shrinks or goes first (groups then build
@@ -229,12 +227,7 @@ def _discovery_memory_plan(ss: Seqset, G: int, stats: dict | None = None, engine
     engine uses them whatever the plan.  The plan is recorded in
     stats["memory_plan"]."""
     dev = engine.device if engine is not None else ss.device
-    if BUDGET_BYTES is not None:
-        budget = BUDGET_BYTES
-    elif dev.type == "cuda":
-        budget = torch.cuda.mem_get_info(dev)[1] // 2
-    else:
-        budget = 4 << 30
+    budget = MemoryBudget.detect(dev).bytes
     n = int(ss.n_entries)
     if engine is not None:
         core = engine.d.nbytes()
@@ -1285,7 +1278,7 @@ def _discover(ss, reference, region, opt, readmap, stats, out_assemblies, engine
         clock.mark("score")
     records = extract_variants(all_asms, ref, reference, opt, device=dev)
     clock.mark("extract")
-    return _dedup_records(records)
+    return records
 
 
 def _rc_assembly(a: Assembly, G: int) -> Assembly:
@@ -1309,48 +1302,25 @@ def _rc_assembly(a: Assembly, G: int) -> Assembly:
 
 def _ref_pair_spans(rm: Readmap, ref: np.ndarray, max_frag: int):
     """Proper-pair spans [a, b) and half-placed mate positions on the
-    reference, computed once per readmap and cached on the instance.
-
-    A proper pair has both mates placed, on opposite strands, at most
-    max_frag apart.  A half-placed pair (one mate on the novel path of an
-    insertion never places) is kept as one position: generous evidence for
-    the gate, which only culls paths with nothing."""
+    reference, computed once per readmap and cached on the instance: the
+    library's reads placed on the reference and paired by
+    ``align.proper_pairs``.  A half-placed pair (one mate on the novel path
+    of an insertion never places) is kept as one position: generous
+    evidence for the gate, which only culls paths with nothing."""
     key = ("_ref_pair_spans", max_frag)
     hit = rm.__dict__.get(key)
     if hit is not None:
         return hit
-    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads
+    from biograph_tpu_torch.variants.align import RefKmerIndex, place_reads, proper_pairs
 
-    loop = rm.mate_pair_ptr.cpu().numpy()
-    fwd_ids = np.nonzero(rm.is_forward.cpu().numpy())[0]
-    mate2 = loop[loop]
-    entries = rm.entry_of_rm[torch.from_numpy(fwd_ids).to(rm.device)]
-    lens = rm.read_lengths.cpu().numpy()[fwd_ids]
-    L = int(lens.max(initial=1))
-    codes = np.zeros((len(fwd_ids), L), np.uint8)
-    for lo in range(0, len(fwd_ids), 1 << 17):
-        hi = min(len(fwd_ids), lo + (1 << 17))
-        codes[lo:hi] = rm.seqset.d.sequences(entries[lo:hi], L).cpu().numpy()
-    codes = np.where(np.arange(L)[None, :] < lens[:, None], codes, 0).astype(np.uint8)
+    codes, lens, mate_of = rm.forward_reads()
     idx = RefKmerIndex.build(ref, 13, device=rm.device)
     pl = place_reads(idx, codes, lens, max_mismatches=3)
-    pos_of_fwd = np.full(rm.num_entries, -1, np.int64)
-    pos_of_fwd[fwd_ids] = np.arange(len(fwd_ids))
-    mate_idx = pos_of_fwd[mate2[fwd_ids]]
-    mclip = np.clip(mate_idx, 0, len(fwd_ids) - 1)
+    a, b, proper, half = proper_pairs(pl, lens, mate_of, max_frag)
+    a, b = a[proper], b[proper]
     placed = pl.pos >= 0
-    paired = (mate_idx != np.arange(len(fwd_ids))) & (mate_idx >= 0)
-    both = placed & paired & placed[mclip]
-    proper = (
-        both
-        & (np.abs(pl.pos - pl.pos[mclip]) <= max_frag)
-        & (pl.is_rc != pl.is_rc[mclip])
-    )
-    a = np.minimum(pl.pos, pl.pos[mclip])[proper]
-    b = np.maximum(pl.pos + lens, pl.pos[mclip] + lens)[proper]
-    half = paired & (placed ^ placed[mclip])
-    half_pos = np.where(placed, pl.pos, pl.pos[mclip])[half]
-    half_len = np.where(placed, lens, lens[mclip])[half]
+    half_pos = np.where(placed, pl.pos, pl.pos[mate_of])[half]
+    half_len = np.where(placed, lens, lens[mate_of])[half]
     order = np.argsort(a)
     spans = (a[order], b[order], np.sort(half_pos + half_len // 2))
     rm.__dict__[key] = spans

@@ -78,40 +78,6 @@ class SvEvent:
         return len(self.ins)
 
 
-def reads_from_readmap(rm, batch: int = 1 << 14, read_slice: tuple | None = None):
-    """Forward-oriented reads and their mate links from a readmap.
-
-    Returns (codes uint8 [R, L], lengths int32 [R], mate_of int64 [R] or
-    None), mate_of[i] the index of read i's mate in the same arrays (itself
-    if unpaired; None when no read has a mate).  The codes come a batch at
-    a time from ``Seqset.d.sequences`` on the readmap's device.
-
-    ``read_slice=(lo, hi)`` makes codes only for forward reads [lo, hi)
-    (hi - lo rows) while lengths and mate_of stay over all R forward reads:
-    a slice's scan needs every read's placement for pair evidence."""
-    loop = rm.mate_pair_ptr.cpu().numpy()
-    fwd_ids = np.nonzero(rm.is_forward.cpu().numpy())[0]
-    lens = rm.read_lengths.cpu().numpy()[fwd_ids]
-    L = int(lens.max(initial=1))
-    lo0, hi0 = read_slice if read_slice is not None else (0, len(fwd_ids))
-    sel = torch.from_numpy(fwd_ids[lo0:hi0]).to(rm.device)
-    entries = rm.entry_of_rm[sel]
-    codes = np.zeros((len(sel), L), np.uint8)
-    d = rm.seqset.d
-    for lo in range(0, len(sel), batch):
-        hi = min(len(sel), lo + batch)
-        codes[lo:hi] = d.sequences(entries[lo:hi], L).cpu().numpy()
-    codes = np.where(np.arange(L)[None, :] < lens[lo0:hi0, None], codes, 0).astype(np.uint8)
-    mate2 = loop[loop]  # fwd -> rc -> mate-fwd
-    pos_of_fwd = np.full(rm.num_entries, -1, np.int64)
-    pos_of_fwd[fwd_ids] = np.arange(len(fwd_ids))
-    mate_of = pos_of_fwd[mate2[fwd_ids]]
-    mate_of = np.where(mate_of >= 0, mate_of, np.arange(len(fwd_ids)))
-    if (mate_of == np.arange(len(fwd_ids))).all():
-        mate_of = None
-    return codes, lens, mate_of
-
-
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
     """Index of the first True along the last axis (its length if there is
     none): the first-occurrence rule of numpy's argmax, stated outright."""
@@ -649,7 +615,8 @@ def _sv_finalize(
     stats: dict | None = None,
 ) -> List[Dict]:
     """Clustering, breakend assembly, pair evidence and records over the
-    (merged) scan; pos_all, rc_all and lengths are over all reads."""
+    (merged) scan; pos_all, rc_all, lengths and mate_of are over all reads,
+    and a mate_of of None or of every read its own mate is unpaired."""
     ref = index.ref_codes.cpu().numpy()
     # cluster: the exact key after left normalization, then merge within pad
     norm: Dict[Tuple[int, int, bytes], set] = {}
@@ -709,7 +676,7 @@ def _sv_finalize(
         merged.append(SvEvent(left=la, right=ra, ins=np.frombuffer(ia, np.uint8), support=len(readset)))
     merged = [e for e in merged if e.support >= opt.min_sv_reads]
 
-    if mate_of is not None and len(merged):
+    if mate_of is not None and (mate_of != np.arange(len(pos_all))).any() and len(merged):
         # proper pairs straddling the junction with a plausible implied
         # fragment once the event is removed
         pos, rcb, mate = pos_all, rc_all, np.asarray(mate_of)
@@ -782,6 +749,8 @@ def discover_structural(
     """Structural variants of at least min_event bases from split reads and
     pair support: discovery-record dicts (chrom, pos, ref, alt, support,
     ref_support, pair_support, svlen) that merge with the wavefront's.
+    The reads and their mates are ``Readmap.forward_reads``'; a mate_of of
+    None or of every read its own mate is an unpaired library.
 
     Runs on ``device``, or on the given index's device.  ``stats`` (a dict,
     filled in place) gets the engine's counters: unplaced_reads,

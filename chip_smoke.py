@@ -43,7 +43,7 @@ warm, each held to the same records: by the dense front end
 position, the filter and the bisection through chain_window over the lanes
 that restarted), with push_front and push4 then held against their plain versions
 on its lanes; and with a memory plan that leaves no room for the trunc
-tables (``discover.BUDGET_BYTES``), so each beam step truncates through the
+tables (``runtime.resources.BUDGET_BYTES``), so each beam step truncates through the
 seqset's LtSearch.  The widen family (truncate_ranges, pop_front_ranges,
 push_front_drop) runs over the ranges find gave every oriented read, and
 LtSearch on 2^20 random queries, on the card and on a CPU copy of the store
@@ -228,6 +228,7 @@ from biograph_tpu_torch.classifier import model as clf_model
 from biograph_tpu_torch.index.seqset import Seqset, SeqsetRanges
 from biograph_tpu_torch.ops import _build, rank4 as rank4_ops, rank_cum as rank_cum_ops
 from biograph_tpu_torch.ops.ltsearch import LtSearch
+from biograph_tpu_torch.runtime import resources
 from biograph_tpu_torch.variants import coverage_tool as cov
 from biograph_tpu_torch.variants import discover as disc
 
@@ -2204,15 +2205,19 @@ LT_QUERIES = 1 << 20
 
 @contextlib.contextmanager
 def discovery_constants(**values):
-    """The discovery module's constants set as given, restored after."""
-    saved = {k: getattr(disc, k) for k in values}
+    """Discovery's constants set as given, restored after: ``NO_PRESCREEN``
+    in the discovery module, ``BUDGET_BYTES`` (the memory plan's budget) in
+    ``runtime.resources``.  Set only around discovery calls on a built
+    store, so no build takes the partitioned path."""
+    home = {k: resources if k == "BUDGET_BYTES" else disc for k in values}
+    saved = {k: getattr(home[k], k) for k in values}
     try:
         for k, v in values.items():
-            setattr(disc, k, v)
+            setattr(home[k], k, v)
         yield
     finally:
         for k, v in saved.items():
-            setattr(disc, k, v)
+            setattr(home[k], k, v)
 
 
 def scored_calls(ss, rm, reference, want, name, fused=True, **constants):
@@ -3728,7 +3733,7 @@ def sv_engine_checks(dev, bgt, fa, want):
     want = want["sv_engine"]
     bg = BioGraph(bgt, device=dev)
     ref = Reference.from_fasta(fa)
-    (codes, lens, mate), read_s = timed(lambda: pt.reads_from_readmap(bg.readmap))
+    (codes, lens, mate), read_s = timed(lambda: bg.readmap.forward_reads())
     if len(lens) != want["reads"] or sha256(codes) != want["codes_sha256"]:
         raise AssertionError("sv_engine: the reads from the readmap differ from the JAX CPU leg's")
     opt = pt.SvOptions()

@@ -244,8 +244,9 @@ def test_annotate_pair_coverage():
     assert got[2] >= 10 and got[0] <= 2 and got[3] == 0
     assert tcov.annotate_pair_coverage(w.tr, w.tref, []).shape == (0,)
     assert tcov.annotate_pair_coverage(None, w.tref, _records(tvcf, recs[:1])).tolist() == [0]
-    fwd, codes, lens = tcov.sample_reads(w.tr)
-    assert len(fwd) == codes.shape[0] == w.tr.read_count and (lens == 40).all()
+    codes, lens, mate_of = w.tr.forward_reads()
+    assert len(mate_of) == codes.shape[0] == w.tr.read_count and (lens == 40).all()
+    assert (mate_of[mate_of] == np.arange(len(mate_of))).all() and (mate_of != np.arange(len(mate_of))).all()
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,8 @@ PyTorch port against the JAX package: the same simulated genomes and reads
 built by the JAX package and carried across with ``convert``.  The dense
 route runs for min_anchor_ctx < 12, or is forced by ``NO_PRESCREEN`` (the
 JAX package's BGT_NO_PRESCREEN); the trunc tables go when the memory plan's
-budget (``BUDGET_BYTES``, the JAX package's BGT_HBM_BUDGET_BYTES) leaves no
-room for them.  Tolerance: exact equality everywhere."""
+budget (``runtime.resources.BUDGET_BYTES``, the JAX package's
+BGT_HBM_BUDGET_BYTES) leaves no room for them.  Tolerance: exact equality everywhere."""
 
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ from biograph_tpu.build.seqset_build import build_seqset as jax_build_seqset
 from biograph_tpu.index.reference import Contig as JContig
 from biograph_tpu.variants import discover as jdisc
 from biograph_tpu_torch import convert
+from biograph_tpu_torch.runtime import resources
 from biograph_tpu_torch.variants import discover as tdisc
 
 G = 6000
@@ -206,7 +207,7 @@ def test_discovery_without_trunc_tables(worlds, monkeypatch):
     base_stats = {}
     base = tdisc.discover_variants(w["ts"], w["tref"], opt=opt, readmap=w["tr"], stats=base_stats)
     assert base_stats["memory_plan"]["use_trunc_tables"]
-    monkeypatch.setattr(tdisc, "BUDGET_BYTES", 1 << 16)
+    monkeypatch.setattr(resources, "BUDGET_BYTES", 1 << 16)  # the store is built: no build sees it
     monkeypatch.setenv("BGT_HBM_BUDGET_BYTES", str(1 << 16))
     calls = []
     truncate = type(w["ts"].d).truncate_ranges

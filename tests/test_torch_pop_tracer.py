@@ -9,8 +9,10 @@ sharded scan against the single pass.  The engine's arrays (split
 placement, the k-mer edge table, the scan's events and clips) equal the
 JAX package's; the batched walk equals the host oracle and the JAX batch;
 ties are built on purpose for the diagonal vote (``mode_diag``) and the
-walk's heaviest edge; ``reads_from_readmap`` on a paired store, whole and
-sliced; ``utils.find_breakpoint_variants`` on ``tests/test_sdk_helpers.py``'s
+walk's heaviest edge; ``Readmap.forward_reads`` on a paired store, whole
+and sliced, against the JAX package's ``reads_from_readmap``; an unpaired
+library's mates, every read its own, give the records of none;
+``utils.find_breakpoint_variants`` on ``tests/test_sdk_helpers.py``'s
 breakpoint world.  Tolerance: exact equality.
 """
 
@@ -59,11 +61,12 @@ def _world(name):
     if name == "clean":
         ref = _mk_reference(rng, 15000)
         return (ref, *_sample_pairs(rng, ref.flat), None)
-    if name == "unpaired_60":
+    if name in ("unpaired_60", "unpaired_60_self_mates"):
         ref = _mk_reference(rng, 12000)
         donor = np.concatenate([ref.flat[:6000], ref.flat[6060:]])
         codes, lens, _ = _sample_pairs(rng, donor)
-        return ref, codes, lens, None, (6000, -60)
+        mate = np.arange(len(lens)) if name.endswith("self_mates") else None  # as forward_reads gives it
+        return ref, codes, lens, mate, (6000, -60)
     if name == "del_49kb":
         ref = _mk_reference(rng, 120000)
         donor = np.concatenate([ref.flat[:40000], ref.flat[89000:]])
@@ -75,13 +78,14 @@ def _world(name):
     raise KeyError(name)
 
 
-WORLDS = ("del_5kb", "ins_300", "clean", "unpaired_60", "del_49kb", "novel_ins_2kb")
+WORLDS = ("del_5kb", "ins_300", "clean", "unpaired_60", "unpaired_60_self_mates", "del_49kb", "novel_ins_2kb")
 
 
 @pytest.mark.parametrize("name", WORLDS)
 def test_discover_structural_equals_jax(name):
     ref, codes, lens, mate, event = _world(name)
-    want = jp.discover_structural(ref, codes, lens, mate_of=mate)
+    # the JAX package reads an unpaired library as mate_of None
+    want = jp.discover_structural(ref, codes, lens, mate_of=None if name.endswith("self_mates") else mate)
     stats = {}
     got = tp.discover_structural(_port_ref(ref), codes, lens, mate_of=mate, device="cpu", stats=stats)
     assert got == want
@@ -341,18 +345,24 @@ def paired_store():
     return jr, tr
 
 
-def test_reads_from_readmap_paired_whole_and_sliced(paired_store):
+def test_reads_from_readmap_paired_whole_and_sliced(paired_store, monkeypatch):
+    """``Readmap.forward_reads`` against the JAX package's
+    ``reads_from_readmap``, in launches of 97 reads, whole and sliced."""
+    from biograph_tpu_torch.index import readmap as treadmap
+
     jr, tr = paired_store
-    full, lens, mate = tp.reads_from_readmap(tr, batch=97)
+    monkeypatch.setattr(treadmap, "READ_CHUNK", 97)
+    full, lens, mate = tr.forward_reads()
     jfull, jlens, jmate = jp.reads_from_readmap(jr)
+    assert full.dtype == jfull.dtype and lens.dtype == jlens.dtype and mate.dtype == np.int64
     np.testing.assert_array_equal(full, jfull)
     np.testing.assert_array_equal(lens, jlens)
-    np.testing.assert_array_equal(mate, jmate)
+    np.testing.assert_array_equal(mate, np.arange(len(mate)) if jmate is None else jmate)
     assert (mate != np.arange(len(mate))).sum() > 0 and (mate == np.arange(len(mate))).sum() == 6
     R = len(lens)
     parts = []
-    for lo, hi in ((0, R // 3), (R // 3, R)):
-        c, l, m = tp.reads_from_readmap(tr, read_slice=(lo, hi))
+    for lo, hi in ((0, 0), (0, R // 3), (R // 3, R)):
+        c, l, m = tr.forward_reads(read_slice=(lo, hi))
         jc, _, _ = jp.reads_from_readmap(jr, read_slice=(lo, hi))
         np.testing.assert_array_equal(c, jc)
         np.testing.assert_array_equal(l, lens)

@@ -1,6 +1,7 @@
 """The pop-chain read rebuild as one kernel: ``sequences`` and its plain
 version against the JAX package, csrc/sequences.cu replayed block by block on
-the host, and ``sample_reads`` (coverage's pairs) on a paired library.
+the host, and ``Readmap.forward_reads`` (the library's reads, as coverage's
+pairs, the pair gate and the SV engine take them) on a paired library.
 
 ``sequences_plain`` (which ``Seqset.d.sequences`` takes on CPU tensors) is
 held to the JAX package's ``Seqset.d.sequences``, with and without the
@@ -27,7 +28,6 @@ from biograph_tpu.build.seqset_build import build_seqset as jax_build_seqset
 from biograph_tpu_torch import convert
 from biograph_tpu_torch.ops import _build
 from biograph_tpu_torch.ops import rank4 as trank4
-from biograph_tpu_torch.variants import coverage_tool as tcov
 
 L = 40
 SOURCE = open(_build.source_path("sequences")).read()
@@ -199,8 +199,10 @@ def test_kernel_replay_is_the_plain_version(store, max_len, tile_cols, masked):
 
 
 def _sample_reads_before(jr):
-    """sample_reads as it was: the forward reads' entries walked a chunk at
-    a time (here by the JAX package), then masked at each read's length."""
+    """The library's reads as coverage rebuilt them before ``sequences``
+    took lengths: the forward reads' entries walked a chunk at a time (here
+    by the JAX package), then masked at each read's length; each read's
+    mate among them from the mate loop, itself where it has none."""
     fwd = np.nonzero(np.asarray(jr.is_forward))[0]
     entries = np.asarray(jr.entry_of_rm)[fwd]
     lens = np.asarray(jr.read_lengths)[fwd]
@@ -209,15 +211,20 @@ def _sample_reads_before(jr):
     for lo in range(0, len(fwd), 64):
         codes[lo : lo + 64] = np.asarray(jr.seqset.d.sequences(jnp.asarray(entries[lo : lo + 64]), Lm))
     codes = np.where(np.arange(Lm)[None, :] < lens[:, None], codes, 0).astype(np.uint8)
-    return fwd, codes, lens
+    loop = np.asarray(jr.mate_pair_ptr)
+    index_of = np.full(len(loop), -1, np.int64)
+    index_of[fwd] = np.arange(len(fwd))
+    mate_of = index_of[loop[loop[fwd]]]
+    return codes, lens, np.where(mate_of >= 0, mate_of, np.arange(len(fwd)))
 
 
 def test_sample_reads_as_before_on_a_trimmed_paired_library(store):
     tr = store["tr"]
-    fwd, codes, lens = tcov.sample_reads(tr)
+    codes, lens, mate_of = tr.forward_reads()
     want = _sample_reads_before(store["jr"])
     assert len(np.unique(lens)) > 5 and (lens < L).any() and (lens == L).any()
-    for got, w in zip((fwd, codes, lens), want):
+    assert (mate_of != np.arange(len(mate_of))).any()
+    for got, w in zip((codes, lens, mate_of), want):
         assert got.dtype == w.dtype and got.shape == w.shape
         np.testing.assert_array_equal(got, w)
     assert codes.shape == (tr.read_count, L)

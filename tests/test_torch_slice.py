@@ -291,7 +291,7 @@ def test_chip_smoke_path_at_toy_size_on_the_cpu(monkeypatch):
         chip_smoke.discover_dense_phase(ss, rm, scored_reference, want[1:])
     assert not chip_smoke.disc.NO_PRESCREEN  # restored after a failure too
     no_trunc = chip_smoke.discover_no_trunc_phase(ss, rm, scored_reference, want, scored["warm"])
-    assert not no_trunc["memory_plan"]["use_trunc_tables"] and chip_smoke.disc.BUDGET_BYTES is None
+    assert not no_trunc["memory_plan"]["use_trunc_tables"] and chip_smoke.resources.BUDGET_BYTES is None
     # the widen family and the SDK, against a CPU copy (here: another)
     monkeypatch.setattr(chip_smoke, "LT_QUERIES", 5000)
     widened = chip_smoke.widen_checks(ss, rm_cpu.seqset, found)
