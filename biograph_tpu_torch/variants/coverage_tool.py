@@ -18,8 +18,9 @@ While a profiler runs, ``run_coverage`` records its spans
 (``runtime/log.span``): ``coverage.call``, ``coverage.annotate`` (counts
 ``records``, ``queries``) with a ``coverage.annotate.walk`` a batch,
 ``coverage.pairs`` with ``.reads``, ``.place`` (counts ``reads``) and
-``.count`` (``records``), ``coverage.phase`` (``variants/phase.py``) and
-``coverage.write``.
+``.count`` (``records``; ``pairs``, the span entries that can reach a
+record, and ``scanned``, those in the records' windows), ``coverage.phase``
+(``variants/phase.py``) and ``coverage.write``.
 """
 
 from __future__ import annotations
@@ -363,17 +364,41 @@ def _pair_coverage(readmap, reference, records: List[VcfRecord], max_frag: int) 
         pl = place_reads(idx, codes, lens, max_mismatches=3)
     a, b, proper, _ = proper_pairs(pl, lens, mate_of, max_frag)
     a, b = a[proper], b[proper]  # each proper pair's span on the donor
-    pc = np.zeros(N, np.int32)
-    with _log.span("coverage.pairs.count", records=N):
-        for i in range(N):
-            if not valid[i]:
-                continue
-            p0, ra, aa = flat_records[i]
-            dlo = int(donor_of_ref[p0])
-            dhi = dlo + len(aa)
-            cover = (a <= dlo) & (b >= dhi)
-            pc[i] = int(cover.sum()) // 2  # each pair is counted from both mates
+    dlo = np.zeros(N, np.int64)
+    dhi = np.zeros(N, np.int64)
+    for i in np.flatnonzero(valid):
+        p0, _, aa = flat_records[i]
+        dlo[i] = int(donor_of_ref[p0])
+        dhi[i] = dlo[i] + len(aa)
+    with _log.span("coverage.pairs.count", records=N) as sp:
+        pc, kept, scanned = _spanning_pairs(a, b, dlo, dhi, valid)
+        sp.set(pairs=kept, scanned=scanned)
     return pc
+
+
+def _spanning_pairs(a, b, dlo, dhi, valid):
+    """The proper pairs spanning each record: entries with ``a <= dlo`` and
+    ``b >= dhi``, each pair counted from both of its mates and the count
+    floor-halved; 0 for an invalid record.  An entry is at most ``S =
+    max(b - a)`` long, so only those starting in ``[dhi - S, dlo]`` can
+    span a record: the entries that can reach any record are sorted by
+    start once, and each record counts the ends of its window alone.
+
+    Returns (int32 [N] counts, the entries kept, the entries scanned)."""
+    pc = np.zeros(len(valid), np.int32)
+    if not len(a) or not valid.any():
+        return pc, 0, 0
+    span = int((b - a).max())
+    lo_rec, hi_rec = dlo[valid], dhi[valid]
+    keep = (b >= hi_rec.min()) & (a <= lo_rec.max())
+    a, b = a[keep], b[keep]
+    order = np.argsort(a)
+    a, b = a[order], b[order]
+    lo = np.searchsorted(a, hi_rec - span, "left")
+    hi = np.maximum(np.searchsorted(a, lo_rec, "right"), lo)
+    counts = [int((b[l:h] >= d).sum()) // 2 for l, h, d in zip(lo.tolist(), hi.tolist(), hi_rec.tolist())]
+    pc[valid] = counts
+    return pc, len(a), int((hi - lo).sum())
 
 
 COVERAGE_HEADERS = [

@@ -249,6 +249,85 @@ def test_annotate_pair_coverage():
     assert (mate_of[mate_of] == np.arange(len(mate_of))).all() and (mate_of != np.arange(len(mate_of))).all()
 
 
+def _spanning_pairs_plain(a, b, dlo, dhi, valid):
+    """Pair coverage's count as a pass over every entry per record: the plain
+    reference ``_spanning_pairs`` is held to."""
+    pc = np.zeros(len(valid), np.int32)
+    for i in np.flatnonzero(valid):
+        pc[i] = int(((a <= dlo[i]) & (b >= dhi[i])).sum()) // 2
+    return pc
+
+
+def _trimmed_spans(rng, n, G=60_000, L=100, frag=400):
+    """n pairs at fragment 400 +- 40, half the reads trimmed by 1-30 bases:
+    each mate's entry [a, b), b adding the mate's own length, so the two
+    entries of a pair can end apart."""
+    s1 = rng.integers(0, G, n)
+    s2 = s1 + rng.integers(frag - 40, frag + 41, n) - L
+    lens = np.where(rng.random(2 * n) < 0.5, L - rng.integers(1, 31, 2 * n), L)
+    a = np.repeat(np.minimum(s1, s2), 2)
+    b = np.repeat(np.maximum(s1, s2), 2) + lens
+    return a.astype(np.int64), b.astype(np.int64)
+
+
+def _pair_count_case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    a, b = _trimmed_spans(rng, 3000)
+    dlo = rng.integers(0, 61_000, 300)
+    dhi = dlo + rng.integers(0, 40, 300)
+    valid = np.ones(len(dlo), bool)
+    if name == "edges":  # a record from an entry's start to its end, or one past its start
+        j = rng.choice(len(a), 300, replace=False)
+        dlo = a[j]
+        dhi = np.where(np.arange(300) % 2 == 0, b[j], a[j] + 1)
+    elif name == "long_insertion":  # an allele longer than every span
+        S = int((b - a).max())
+        dhi[::3] = dlo[::3] + S + rng.integers(1, 50, len(dhi[::3]))
+    elif name == "outside":  # records before and after every span
+        dlo = np.concatenate([rng.integers(-500, int(a.min()), 50), rng.integers(int(b.max()) + 1, int(b.max()) + 500, 50)])
+        dhi = dlo + 1
+        valid = np.ones(100, bool)
+    elif name == "odd":  # one mate's entry ends short of the record, the other's past it
+        a = np.array([10, 10, 20, 20], np.int64)
+        b = np.array([100, 95, 120, 120], np.int64)
+        dlo = np.array([50, 50, 50, 15, 15, 25], np.int64)
+        dhi = np.array([98, 101, 96, 96, 95, 121], np.int64)
+        valid = np.ones(6, bool)
+    elif name == "no_pairs":
+        a, b = a[:0], b[:0]
+    elif name == "invalid":  # symbolic alleles inside spans get 0
+        valid = rng.random(len(dlo)) < 0.5
+        dlo[~valid] = a[: (~valid).sum()] + 5
+        dhi[~valid] = dlo[~valid] + 1
+    return a, b, dlo.astype(np.int64), dhi.astype(np.int64), valid
+
+
+@pytest.mark.parametrize("case", ["trimmed", "edges", "long_insertion", "outside", "odd", "no_pairs", "invalid"])
+def test_spanning_pairs_matches_the_pass_over_every_entry(case):
+    """Pair coverage's windowed count (spans sorted once, each record
+    scanning the entries that start within the longest span before it)
+    gives the per-record pass's counts exactly."""
+    a, b, dlo, dhi, valid = _pair_count_case(case)
+    got, kept, scanned = tcov._spanning_pairs(a, b, dlo, dhi, valid)
+    want = _spanning_pairs_plain(a, b, dlo, dhi, valid)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert 0 <= kept <= len(a) and 0 <= scanned <= valid.sum() * kept
+    assert (got[~valid] == 0).all()
+    if case == "trimmed":
+        assert want.max() >= 3 and (b[0::2] != b[1::2]).any() and scanned < valid.sum() * len(a) // 10
+    elif case == "edges":
+        assert want.max() > 0
+    elif case == "long_insertion":
+        assert (got[::3] == 0).all() and got.max() > 0
+    elif case == "odd":
+        assert want.tolist() == [1, 1, 1, 0, 1, 0]  # of 3, 2, 3, 1, 2 and 0 entries
+    elif case in ("outside", "no_pairs"):
+        assert (got == 0).all() and (case == "outside" or kept == scanned == 0)
+    elif case == "invalid":
+        assert (~valid).any() and _spanning_pairs_plain(a, b, dlo, dhi, np.ones_like(valid))[~valid].max() > 0
+
+
 @pytest.fixture(scope="module")
 def diploid_paired():
     return _diploid_paired()

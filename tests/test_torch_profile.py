@@ -486,7 +486,7 @@ COVERAGE_SPANS = {
 }
 
 
-def test_coverage_spans_of_one_call(world, recording, tmp_path):
+def test_coverage_spans_of_one_call(world, recording, tmp_path, monkeypatch):
     """A traced run_coverage call with pair coverage, phasing and features:
     every coverage span once (the walk once a batch), nested as listed,
     with its counts, the coverage routes counted in the spans they ran in;
@@ -496,7 +496,16 @@ def test_coverage_spans_of_one_call(world, recording, tmp_path):
     from biograph_tpu_torch.api import BioGraph
     from biograph_tpu_torch.cli import _load_reference
     from biograph_tpu_torch.io.vcf import VcfRecord, VcfWriter
+    from biograph_tpu_torch.variants import coverage_tool
     from biograph_tpu_torch.variants.coverage_tool import BATCH, run_coverage
+
+    spans, count_pairs = [], coverage_tool._spanning_pairs
+
+    def keep_spans(*arg):  # the pair count's inputs, to count the entries it should keep
+        spans.append(arg)
+        return count_pairs(*arg)
+
+    monkeypatch.setattr(coverage_tool, "_spanning_pairs", keep_spans)
 
     cs = _chip_smoke()
     _, _, fa, bgt, _ = world
@@ -539,7 +548,13 @@ def test_coverage_spans_of_one_call(world, recording, tmp_path):
     assert sum(w["route_general"] for w in walks) == 2 * len(small)
     assert not any(k.startswith("route_") and k != "route_general" for w in walks for k in w)
     assert one["coverage.pairs.reads"] == {"reads": reads} and one["coverage.pairs.place"] == {"reads": reads}
-    assert one["coverage.pairs.count"] == {"records": len(small)}
+    # pairs: the proper entries that can reach a record; scanned: those in the records' windows
+    a, b, dlo, dhi, valid = spans[-1]
+    kept = int(((b >= dhi[valid].min()) & (a <= dlo[valid].max())).sum())
+    counted = one["coverage.pairs.count"]
+    assert set(counted) == {"records", "pairs", "scanned"} and counted["records"] == len(small)
+    assert counted["pairs"] == kept and 0 < kept <= len(a)
+    assert 0 <= counted["scanned"] <= len(small) * kept
     assert set(one["coverage.phase"]) <= {"het", "route_general"} and one["coverage.phase"]["het"] >= 0
     assert one["coverage.call"] == {} and one["coverage.write"] == {}
 
